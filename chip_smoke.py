@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port starts and serves on the GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card of compute capability 9.0 (an H100) and ``nvcc``; it
+imports nothing of JAX. Phases, each of which fails the run:
+
+1. environment: the card's name and power limit, torch, the capability;
+2. build: every kernel of the serving path from ``src/repro_torch/csrc``;
+3. kernels against their plain PyTorch versions on the card, at the serving
+   shapes and at the JAX package's sweep shapes, float32 (TF32 off) within
+   2e-4 and bfloat16 within 2e-2; times of kernel, plain version, bound and
+   one library call (``scaled_dot_product_attention``, timed here only);
+4. engine: the port's ``Engine`` serves 24 requests of ``tiny_lm`` (c=4) and
+   ``small_lm`` (c=2) at full width in bfloat16, and must have launched both
+   kernels;
+5. model parity: an f32 ``tiny_lm`` on the card (kernels) against the same
+   weights on the CPU (plain versions): logits within 2e-3, greedy tokens equal.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
+prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_S = 3.35e12                         # H100 SXM HBM3
+PEAK_FLOP_S = {"bfloat16": 989e12,            # dense tensor-core bf16
+               "float32": 67e12}              # float32 outside the tensor cores
+TOL = {"float32": 2e-4, "bfloat16": 2e-2}     # tests/test_kernels.py:17-19
+LOGIT_TOL = 2e-3                              # tests/test_decode_parity.py
+
+# (label, B, S, H, KV, hd, causal, window): the engine's prefills (tiny_lm and
+# small_lm, prompts bucketed to 16/32/64, 256 at the Engine's default max_len)
+# and the JAX sweep (tests/test_kernels.py:24-29)
+FLASH_CASES = [
+    ("tiny_lm S16", 1, 16, 8, 4, 32, True, 0),
+    ("tiny_lm S32", 1, 32, 8, 4, 32, True, 0),
+    ("tiny_lm S64", 1, 64, 8, 4, 32, True, 0),
+    ("tiny_lm S256", 1, 256, 8, 4, 32, True, 0),
+    ("small_lm S16", 1, 16, 8, 8, 64, True, 0),
+    ("small_lm S32", 1, 32, 8, 8, 64, True, 0),
+    ("small_lm S64", 1, 64, 8, 8, 64, True, 0),
+    ("small_lm S256", 1, 256, 8, 8, 64, True, 0),
+    ("sweep", 2, 256, 4, 2, 64, True, 0),
+    ("sweep bidir", 1, 256, 4, 4, 128, False, 0),
+    ("sweep window", 2, 512, 8, 2, 64, True, 100),
+    ("sweep", 1, 128, 2, 1, 32, True, 0),
+]
+# (label, B, W, H, KV, hd, ring): the engine's decodes (B = slots, W = max_len)
+# and the JAX sweep (tests/test_kernels.py:44-48)
+DECODE_CASES = [
+    ("tiny_lm c4 W64", 4, 64, 8, 4, 32, False),
+    ("tiny_lm c4 W256", 4, 256, 8, 4, 32, False),
+    ("small_lm c2 W64", 2, 64, 8, 8, 64, False),
+    ("small_lm c2 W256", 2, 256, 8, 8, 64, False),
+    ("sweep", 2, 256, 8, 2, 64, False),
+    ("sweep ring", 3, 128, 4, 4, 32, True),
+    ("sweep", 1, 512, 16, 2, 128, False),
+]
+# the shapes the kernels line reports: the engine's commonest calls
+FLASH_LINE = "tiny_lm S32"
+DECODE_LINE = "tiny_lm c4 W64"
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeError(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters=100, warmup=10) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=50):
+    """Mean device time per call of the kernels ``fn`` launches, from the
+    profiler's CUDA activity (None where the profiler sees no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return sum(spans) / iters / 1e3 if spans else None
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_environment():
+    import torch
+    smi = nvidia_smi()
+    print(f"[env] nvidia-smi: {smi}")
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    cap = torch.cuda.get_device_capability(0)
+    print(f"[env] {torch.cuda.get_device_name(0)} capability {cap} "
+          f"count {torch.cuda.device_count()}")
+    check(cap >= (9, 0), f"capability {cap} is below (9, 0)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[env] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    took = build.build()
+    for name in build.SOURCES:
+        build.load(name)
+        regs = [ln.strip() for ln in build.build_log(name).splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"[build] {name}: {build.library_path(name).name} "
+              f"({took.get(name, 0.0):.1f} s)")
+        for ln in regs:
+            print(f"[build]   {ln}")
+    print(f"[build] total {time.perf_counter() - t0:.1f} s")
+
+
+def _inputs(gen, shape, dtype, device="cuda"):
+    import torch
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def phase_kernels():
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        tol = TOL[dname]
+        for label, B, S, H, KV, hd, causal, window in FLASH_CASES:
+            q = _inputs(gen, (B, S, H, hd), dtype)
+            k = _inputs(gen, (B, S, KV, hd), dtype)
+            v = _inputs(gen, (B, S, KV, hd), dtype)
+            out = fa.flash_attention(q, k, v, causal=causal, window=window)
+            ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+            print(f"[kernels] flash_attention {label} B{B} S{S} H{H} KV{KV} hd{hd} "
+                  f"causal={causal} window={window} {dname}: max_abs_err {err:.3e} "
+                  f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_attention {label} {dname} disagrees with its plain version")
+            if not label.startswith("sweep"):
+                rows[("flash_attention", label, dname)] = _time_flash(
+                    F, fa, q, k, v, causal, window, dname, err)
+        for label, B, W, H, KV, hd, ring in DECODE_CASES:
+            q = _inputs(gen, (B, H, hd), dtype)
+            kc = _inputs(gen, (B, W, KV, hd), dtype)
+            vc = _inputs(gen, (B, W, KV, hd), dtype)
+            rng = np.random.default_rng(B * W + H)
+            if label.startswith("sweep"):
+                pos = rng.integers(5, W * 2 if ring else W, B)
+            else:   # the engine's decode positions: prompt bucket + a few tokens
+                pos = rng.integers(16, 40, B)
+            pos = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+            out = dec.decode_attention(q, kc, vc, pos, ring=ring)
+            ref = dec.decode_attention_plain(q, kc, vc, pos, ring=ring)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+            print(f"[kernels] decode_attention {label} B{B} W{W} H{H} KV{KV} hd{hd} "
+                  f"ring={ring} {dname}: max_abs_err {err:.3e} (tol {tol:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"decode_attention {label} {dname} disagrees with its plain version")
+            if not label.startswith("sweep"):
+                rows[("decode_attention", label, dname)] = _time_decode(
+                    F, dec, q, kc, vc, pos, ring, dname, err)
+    print("[kernels] ms: CUDA events over 100 back-to-back calls (host overhead "
+          "included); device_ms: the profiler's kernel time per call")
+    for (name, label, dname), r in rows.items():
+        print(f"[kernels] time {name} {label} {dname}: kernel_ms {r['ms']:.4f} "
+              f"(device {_ms(r['device_ms'])}) plain_ms {r['plain_ms']:.4f} "
+              f"(device {_ms(r['plain_device_ms'])}) library_ms {r['library_ms']:.4f} "
+              f"(device {_ms(r['library_device_ms'])}, max_abs_err "
+              f"{r['library_err']:.1e}) bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+    return rows
+
+
+def _time_flash(F, fa, q, k, v, causal, window, dname, err):
+    import torch
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = None
+    if window:
+        i = torch.arange(S, device=q.device)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    lib = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+    lib_err = (lib().transpose(1, 2).float()
+               - fa.flash_attention_plain(q, k, v, causal=causal, window=window).float()
+               ).abs().max().item()
+    pairs = 0
+    for t in range(S):   # (query, key) pairs the mask lets through
+        lo = max(0, t - window + 1) if window else 0
+        pairs += (t + 1 if causal else S) - lo
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b_ms, b_by = bound_ms(nbytes, 4.0 * hd * pairs * B * H, dname)
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
+    plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _timings(kern, plain, lib, f"B{B} S{S} H{H} KV{KV} hd{hd}", err, lib_err,
+                    b_ms, b_by)
+
+
+def _timings(kern, plain, lib, shape, err, lib_err, b_ms, b_by):
+    return {"shape": shape, "max_abs_err": err,
+            "ms": time_ms(kern), "device_ms": device_ms(kern),
+            "plain_ms": time_ms(plain), "plain_device_ms": device_ms(plain),
+            "library_ms": time_ms(lib), "library_device_ms": device_ms(lib),
+            "library_err": lib_err, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _time_decode(F, dec, q, kc, vc, pos, ring, dname, err):
+    import torch
+    B, W, KV, hd = kc.shape
+    H = q.shape[1]
+    slot = torch.arange(W, device=q.device)
+    valid = slot[None, :] <= pos[:, None].long()
+    if ring:
+        valid = valid | (pos[:, None].long() >= W)
+    mask = valid[:, None, None, :]
+    qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib_err = (lib()[:, :, 0].float()
+               - dec.decode_attention_plain(q, kc, vc, pos, ring=ring).float()
+               ).abs().max().item()
+    keys = int(valid.sum().item())          # cache rows this run's positions need
+    nbytes = (2 * q.numel() + 2 * keys * KV * hd) * q.element_size() + pos.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 4.0 * hd * keys * H, dname)
+    kern = lambda: dec.decode_attention(q, kc, vc, pos, ring=ring)
+    plain = lambda: dec.decode_attention_plain(q, kc, vc, pos, ring=ring)
+    return _timings(kern, plain, lib, f"B{B} W{W} H{H} KV{KV} hd{hd}", err, lib_err,
+                    b_ms, b_by)
+
+
+def phase_engine():
+    import numpy as np
+    import torch
+
+    from repro_torch.core.config_store import ConfigStore, ImageRegistry
+    from repro_torch.core.router import build_tree
+    from repro_torch.core.simulator import summarize
+    from repro_torch.core.types import FunctionConfig, Request
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.engine import Engine
+
+    store = ConfigStore()
+    for fn, arch, c in (("tiny-gen", "tiny_lm", 4), ("small-gen", "small_lm", 2)):
+        store.put(FunctionConfig(name=fn, arch=arch, concurrency=c,
+                                 gen_tokens=4, idle_timeout_s=60.0))
+    engine = Engine(build_tree(2, fanout=2), store, ImageRegistry(), max_len=64,
+                    device="cuda")
+    rng = np.random.default_rng(0)
+    fa.flash_attention.launches = 0
+    dec.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    reqs, results = [], []
+    for _ in range(24):   # the mix of examples/emulate_workers.py
+        fn = "tiny-gen" if rng.random() < 0.8 else "small-gen"
+        req = Request(fn=fn, arrival_t=0.0, size=int(rng.integers(4, 24)))
+        reqs.append(req)
+        engine.submit(req)
+        if rng.random() < 0.4:
+            results.extend(engine.run())
+    results.extend(engine.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "decode_attention": dec.decode_attention.launches}
+
+    check(len(results) == 24 and all(r.ok for r in results),
+          f"{sum(r.ok for r in results)}/{len(results)} of 24 requests ok")
+    check({r.rid for r in results} == {r.rid for r in reqs}, "request ids lost")
+    tel = engine.telemetry()
+    check(len(tel) == 24 and all(len(t.features()) == 7 and t.latency > 0 for t in tel),
+          "telemetry rows missing, short or without latency")
+    for name, n in launches.items():
+        check(n > 0, f"the engine never launched {name}")
+    insts = [i for w in engine.workers.values() for il in w.instances.values() for i in il]
+    tokens = sum(len(toks) for i in insts for toks in i.generated.values())
+    check(all(len(toks) == 5 for i in insts for toks in i.generated.values()),
+          "a request did not generate its first token plus gen_tokens=4")
+    s = summarize(results)
+    colds = [round(i.cold_start_s, 3) for i in insts]
+    n_fn = {fn: sum(r.fn == fn for r in reqs) for fn in ("tiny-gen", "small-gen")}
+    print(f"[engine] {s['ok']}/{s['n']} ok ({n_fn}) in {wall:.3f} s: "
+          f"p50 {s['p50'] * 1e3:.1f} ms p99 {s['p99'] * 1e3:.1f} ms "
+          f"cold_rate {s['cold_rate']:.2f}")
+    print(f"[engine] instance cold starts (s): {colds}")
+    print(f"[engine] generated {tokens} tokens, {tokens / wall:.1f} tokens/s end to end")
+    print(f"[engine] kernel launches: {launches} "
+          f"(per request: {launches['flash_attention'] / 24:.2f} flash, "
+          f"{launches['decode_attention'] / 24:.2f} decode)")
+    _profile_engine(engine, Request)
+    return launches
+
+
+def _profile_engine(engine, Request):
+    """Device busy share of a warm pass (8 tiny_lm requests) and where the
+    device time goes, from the profiler's CUDA activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for size in (4, 9, 14, 19, 23, 6, 11, 17):
+            engine.submit(Request(fn="tiny-gen", arrival_t=0.0, size=size))
+        res = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(len(res) == 8 and all(r.ok for r in res), "profiled pass lost requests")
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+    busy = sum(by_name.values())
+    print(f"[engine] warm pass, 8 tiny_lm requests: wall {wall:.3f} s, device busy "
+          f"{busy * 1e3:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[engine]   {t * 1e3:8.3f} ms {t / busy:6.1%}  {name[:90]}")
+    for kernel in ("flash_fwd_kernel", "decode_partial_kernel", "decode_combine_kernel"):
+        t = sum(v for k, v in by_name.items() if kernel in k)
+        print(f"[engine]   {t * 1e3:8.3f} ms {t / busy:6.1%}  {kernel} (port)")
+
+
+def phase_parity():
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = replace(get_config("tiny_lm"), dtype="float32")
+    gpu = LM(cfg, device="cuda", seed=11)
+    cpu = LM(cfg, device="cpu", seed=11)
+    B, S0, W, steps = 2, 16, 32, 4
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S0)).astype(np.int32)
+    caches, logits = {}, {}
+    for name, lm in (("gpu", gpu), ("cpu", cpu)):
+        lg, pc = lm.prefill({"tokens": torch.as_tensor(toks, device=lm.device)})
+        cache = lm.init_cache(B, W)
+        for cs, ps in zip(cache["slots"], pc["slots"]):
+            for n in cs:
+                cs[n][:, :, :S0] = ps[n]
+        caches[name], logits[name] = cache, lg
+    worst = 0.0
+    for t in range(S0, S0 + steps + 1):
+        g, c = logits["gpu"].float().cpu(), logits["cpu"]
+        err = (g - c).abs().max().item()
+        worst = max(worst, err)
+        check(torch.allclose(g, c, rtol=LOGIT_TOL, atol=LOGIT_TOL),
+              f"tiny_lm f32 logits at position {t - 1}: max_abs_err {err:.3e}")
+        tok_g, tok_c = g.argmax(-1), c.argmax(-1)
+        check(torch.equal(tok_g, tok_c), f"greedy tokens differ: {tok_g} vs {tok_c}")
+        if t == S0 + steps:
+            break
+        for name, lm in (("gpu", gpu), ("cpu", cpu)):
+            batch = {"token": tok_c.to(torch.int32).to(lm.device),
+                     "pos": torch.full((B,), t, dtype=torch.int32, device=lm.device)}
+            logits[name], caches[name] = lm.decode_step(caches[name], batch)
+    print(f"[parity] tiny_lm f32 prefill + {steps} decode steps, card vs CPU: "
+          f"max_abs_err {worst:.3e} (tol {LOGIT_TOL:g}), greedy tokens equal")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; it runs on the card",
+              file=sys.stderr)
+        return 2
+    import repro_torch.kernels.build  # noqa: F401  (fails outside a checkout)
+
+    t0 = time.perf_counter()
+    smi = phase_environment()
+    phase_build()
+    rows = phase_kernels()
+    launches = phase_engine()
+    phase_parity()
+
+    kernels = []
+    for name, label, replaces, source in (
+            ("flash_attention", FLASH_LINE, "src/repro/kernels/flash_attention.py:103",
+             "src/repro_torch/csrc/flash_attention.cu"),
+            ("decode_attention", DECODE_LINE, "src/repro/kernels/decode_attention.py:84",
+             "src/repro_torch/csrc/decode_attention.cu")):
+        r = rows[(name, label, "bfloat16")]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "device_ms": r["device_ms"], "plain_device_ms": r["plain_device_ms"],
+                        "library_device_ms": r["library_device_ms"],
+                        "shape": f"{label}: {r['shape']}", "dtype": "bfloat16"})
+    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,115 @@
+"""Attention, ported from the JAX package's ``models/attention.py``.
+
+* :func:`attend_plain` — materialized-scores attention (the oracle).
+* :func:`attend_decode` — one-token GQA attention against a (possibly
+  ring-buffered) KV cache.
+* :func:`attn_forward` / :func:`attn_decode` — the full attention block:
+  projections, qk_norm, rope, cache handling.
+
+Sequence and decode attention go through ``kernels.ops``, which picks by
+device: kernels B1 and B2 on the card, their plain versions on the CPU.
+The blocked-flash path with its custom backward (``attend_blocked``) belongs
+to the training slice and is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
+from repro_torch.models.layers import head_rms_norm, rope
+
+__all__ = ["NEG_INF", "attend_plain", "attend_decode", "attn_forward", "attn_decode"]
+
+
+def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window: int = 0) -> torch.Tensor:
+    """Materialized-scores reference. q [B,S,H,hd]; k,v [B,S,KV,hd]."""
+    return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+def attend_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  positions: torch.Tensor, *, ring: bool = False) -> torch.Tensor:
+    """One-token attention against the cache.
+
+    q: [B, H, hd]; caches: [B, W, KV, hd]; positions: [B] (index of the token
+    being generated). ``ring=True``: the cache is a ring buffer of width W over
+    a longer stream (local layers), every slot written so far in-window.
+    """
+    return ops.decode_attention(q, k_cache, v_cache, positions, ring=ring)
+
+
+def attn_forward(x: torch.Tensor, p: dict, cfg, layer_local: bool,
+                 positions: torch.Tensor, *, theta: float) -> Tuple[torch.Tensor, dict]:
+    """Sequence-mode attention (prefill). Returns (out, new_cache_entry).
+
+    x: [B, S, D]. Cache entry: k/v [B, W, KV, hd] where W = window for local
+    layers (ring-placed) else S.
+    """
+    B, S, D = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KV, hd)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.causal:  # encoders use absolute positions added at the input
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
+    window = cfg.sliding_window if layer_local else 0
+    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
+    y = out.reshape(B, S, H * hd) @ p["wo"]
+    if layer_local and cfg.sliding_window and S > cfg.sliding_window:
+        # last W tokens, placed at their ring slots (slot = pos % W)
+        W = cfg.sliding_window
+        roll = -((S - W) % W)
+        cache_k = torch.roll(k[:, -W:], roll, dims=1)
+        cache_v = torch.roll(v[:, -W:], roll, dims=1)
+    else:
+        cache_k, cache_v = k, v
+    return y, {"k": cache_k, "v": cache_v}
+
+
+def attn_decode(x: torch.Tensor, p: dict, cfg, layer_local: bool, cache: dict,
+                positions: torch.Tensor, *, theta: float) -> Tuple[torch.Tensor, dict]:
+    """One-token attention. x: [B, D]; cache k/v [B, W, KV, hd]; positions [B].
+
+    Unlike the JAX function, the new k/v are written into ``cache`` in place;
+    the returned entry holds the same tensors."""
+    B, D = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, H, hd)
+    k = (x @ p["wk"]).reshape(B, KV, hd)
+    v = (x @ p["wv"]).reshape(B, KV, hd)
+    if cfg.qk_norm:
+        q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q[:, None], positions[:, None], theta)[:, 0]
+    k = rope(k[:, None], positions[:, None], theta)[:, 0]
+    W = cache["k"].shape[1]
+    ring = bool(layer_local and cfg.sliding_window and W == cfg.sliding_window)
+    slot = positions % W if ring else positions
+    _update_cache(cache["k"], k, slot)
+    _update_cache(cache["v"], v, slot)
+    out = attend_decode(q, cache["k"], cache["v"], positions, ring=ring)
+    y = out.reshape(B, H * hd) @ p["wo"]
+    return y, cache
+
+
+def _update_cache(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
+    """Write new [B, KV, hd] into cache [B, W, KV, hd] at per-batch slots, in place.
+
+    A slot at or past W is dropped, as JAX's scatter drops it (the engine
+    reaches this when a prompt buckets to ``max_len``). The dropped row is
+    rewritten with its own value, so no host sync decides which rows to skip.
+    """
+    B, W = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)
+    slot = slot.to(device=cache.device, dtype=torch.long)
+    inside = slot < W
+    at = torch.where(inside, slot, W - 1)
+    keep = cache[rows, at]
+    cache[rows, at] = torch.where(inside[:, None, None], new.to(cache.dtype), keep)

@@ -17,6 +17,8 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA card of compute "
+                            "capability 9.0 and nvcc; skips without them")
 
 
 @pytest.fixture(autouse=True)

@@ -1,0 +1,101 @@
+"""The port's plain kernel versions (the CPU path and the card's yardstick)
+against the JAX package's Pallas kernels in interpret mode and its jnp
+oracles, on the same numpy inputs. Tolerances are the reference's own:
+2e-4 in float32, 2e-2 in bfloat16 (tests/test_kernels.py)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.decode_attention import decode_attention as pallas_decode  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro_torch.bridge import tensor_from_numpy  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.decode_attention import split_chunk  # noqa: E402
+
+DTYPES = ["float32", "bfloat16"]
+TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a JAX array and a torch tensor (bf16 bit for bit)."""
+    a = jnp.asarray(rng.standard_normal(shape, dtype=np.float32), dtype)
+    return a, tensor_from_numpy(np.asarray(a))
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
+    (1, 64, 4, 2, 32, True, 0),
+    (1, 32, 2, 2, 16, False, 0),
+    (2, 64, 4, 1, 16, True, 20),
+    (1, 48, 2, 1, 16, True, 0),
+])
+def test_flash_plain_matches_pallas_and_oracle(B, S, H, KV, hd, causal, window, dtype):
+    rng = np.random.default_rng(B * S + H + hd)
+    jq, tq = _pair(rng, (B, S, H, hd), dtype)
+    jk, tk = _pair(rng, (B, S, KV, hd), dtype)
+    jv, tv = _pair(rng, (B, S, KV, hd), dtype)
+    got = tref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == (B, S, H, hd)
+    got = got.float().numpy()
+    _close(got, jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window), dtype)
+    _close(got, pallas_flash(jq, jk, jv, causal=causal, window=window,
+                             block_q=16, block_k=16), dtype)
+    # the CPU dispatch takes exactly the plain version
+    np.testing.assert_array_equal(
+        ops.flash_attention(tq, tk, tv, causal=causal, window=window).float().numpy(), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,W,H,KV,hd,ring", [
+    (2, 64, 8, 2, 32, False),
+    (3, 32, 4, 4, 16, True),
+    (1, 128, 8, 2, 64, False),
+])
+def test_decode_plain_matches_pallas_and_oracle(B, W, H, KV, hd, ring, dtype):
+    rng = np.random.default_rng(B * W + H + hd)
+    jq, tq = _pair(rng, (B, H, hd), dtype)
+    jk, tk = _pair(rng, (B, W, KV, hd), dtype)
+    jv, tv = _pair(rng, (B, W, KV, hd), dtype)
+    pos = rng.integers(5, W * 2 if ring else W, B).astype(np.int32)
+    got = tref.decode_attention_ref(tq, tk, tv, torch.as_tensor(pos), ring=ring)
+    assert got.dtype == tq.dtype and got.shape == (B, H, hd)
+    got = got.float().numpy()
+    jpos = jnp.asarray(pos)
+    _close(got, jref.decode_attention_ref(jq, jk, jv, jpos, ring=ring), dtype)
+    _close(got, pallas_decode(jq, jk, jv, jpos, ring=ring, block_w=16), dtype)
+    np.testing.assert_array_equal(
+        ops.decode_attention(tq, tk, tv, torch.as_tensor(pos), ring=ring).float().numpy(),
+        got)
+
+
+def test_decode_plain_masks_past_valid_len():
+    """Cache rows past pos (linear) carry no weight, whatever they hold."""
+    rng = np.random.default_rng(0)
+    q = torch.as_tensor(rng.standard_normal((2, 4, 16), dtype=np.float32))
+    kc = torch.as_tensor(rng.standard_normal((2, 32, 2, 16), dtype=np.float32))
+    vc = torch.as_tensor(rng.standard_normal((2, 32, 2, 16), dtype=np.float32))
+    pos = torch.tensor([3, 20], dtype=torch.int32)
+    a = tref.decode_attention_ref(q, kc, vc, pos)
+    kc2, vc2 = kc.clone(), vc.clone()
+    kc2[0, 4:] = 1e3
+    vc2[1, 21:] = -1e3
+    torch.testing.assert_close(tref.decode_attention_ref(q, kc2, vc2, pos), a)
+
+
+@pytest.mark.parametrize("B,KV,W,chunk", [
+    (4, 4, 64, 16),      # tiny_lm, 4 slots, max_len 64
+    (2, 8, 256, 16),     # small_lm, 2 slots, max_len 256
+    (64, 8, 4096, 64),   # a grid that fills the card at the largest chunk
+])
+def test_decode_split_fills_the_card(B, KV, W, chunk):
+    assert split_chunk(B, KV, W) == chunk
