@@ -7,16 +7,26 @@ Needs one CUDA card of compute capability 9.0 (an H100) and ``nvcc``; it
 imports nothing of JAX. Phases, each of which fails the run:
 
 1. environment: the card's name and power limit, torch, the capability;
-2. build: every kernel of the serving path from ``src/repro_torch/csrc``;
+2. build: the three kernels of the serving paths from ``src/repro_torch/csrc``,
+   one ``nvcc`` each, all at once;
 3. kernels against their plain PyTorch versions on the card, at the serving
-   shapes and at the JAX package's sweep shapes, float32 (TF32 off) within
-   2e-4 and bfloat16 within 2e-2; times of kernel, plain version, bound and
-   one library call (``scaled_dot_product_attention``, timed here only);
+   shapes and at the JAX package's sweep shapes: attention (B1, B2) in float32
+   (TF32 off) within 2e-4 and bfloat16 within 2e-2, the selective scan (B3)
+   within 2e-3 and 5e-2, its output and its final state; times of kernel,
+   plain version, bound and, for attention, one library call
+   (``scaled_dot_product_attention``, timed here only; no PyTorch call
+   computes a selective scan);
 4. engine: the port's ``Engine`` serves 24 requests of ``tiny_lm`` (c=4) and
-   ``small_lm`` (c=2) at full width in bfloat16, and must have launched both
-   kernels;
-5. model parity: an f32 ``tiny_lm`` on the card (kernels) against the same
-   weights on the CPU (plain versions): logits within 2e-3, greedy tokens equal.
+   ``small_lm`` (c=2) at full width in bfloat16, and must have launched B1
+   and B2;
+5. engine: the port's ``Engine`` serves 8 requests of ``falcon_mamba_7b``
+   (c=2) at full width and depth (64 layers, bfloat16), and must have
+   launched B3; cold start split into materialization and warm-up, peak
+   device memory;
+6. model parity: an f32 ``tiny_lm`` and an f32 ``falcon_mamba_7b`` cut to 2
+   layers at full width, on the card (kernels) against the same weights on
+   the CPU (plain versions): logits and caches within 2e-3, greedy tokens
+   equal, over a prefill and 4 decode steps.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -38,6 +48,7 @@ HBM_BYTES_S = 3.35e12                         # H100 SXM HBM3
 PEAK_FLOP_S = {"bfloat16": 989e12,            # dense tensor-core bf16
                "float32": 67e12}              # float32 outside the tensor cores
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}     # tests/test_kernels.py:17-19
+SCAN_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # tests/test_kernels.py:78-79
 LOGIT_TOL = 2e-3                              # tests/test_decode_parity.py
 
 # (label, B, S, H, KV, hd, causal, window): the engine's prefills (tiny_lm and
@@ -68,9 +79,22 @@ DECODE_CASES = [
     ("sweep ring", 3, 128, 4, 4, 32, True),
     ("sweep", 1, 512, 16, 2, 128, False),
 ]
+# (label, Bt, S, DI, N): falcon_mamba_7b's prefills (prompts bucketed to 16/32,
+# 64 and 256 for longer ones), float32 with a non-zero h0 as mamba_forward
+# calls it, and the JAX sweep (tests/test_kernels.py:63-67) in both types
+MAMBA_CASES = [
+    ("falcon_mamba_7b S16", 1, 16, 8192, 16),
+    ("falcon_mamba_7b S32", 1, 32, 8192, 16),
+    ("falcon_mamba_7b S64", 1, 64, 8192, 16),
+    ("falcon_mamba_7b S256", 1, 256, 8192, 16),
+    ("sweep", 2, 128, 64, 8),
+    ("sweep", 1, 64, 128, 16),
+    ("sweep", 2, 96, 32, 4),
+]
 # the shapes the kernels line reports: the engine's commonest calls
 FLASH_LINE = "tiny_lm S32"
 DECODE_LINE = "tiny_lm c4 W64"
+MAMBA_LINE = "falcon_mamba_7b S32"
 
 
 class SmokeError(RuntimeError):
@@ -218,15 +242,77 @@ def phase_kernels():
             if not label.startswith("sweep"):
                 rows[("decode_attention", label, dname)] = _time_decode(
                     F, dec, q, kc, vc, pos, ring, dname, err)
-    print("[kernels] ms: CUDA events over 100 back-to-back calls (host overhead "
+    rows.update(_check_mamba(gen))
+    print("[kernels] ms: CUDA events over back-to-back calls (host overhead "
           "included); device_ms: the profiler's kernel time per call")
     for (name, label, dname), r in rows.items():
+        lib = "library_ms none (no PyTorch call computes it)"
+        if r["library_ms"] is not None:
+            lib = (f"library_ms {r['library_ms']:.4f} (device {_ms(r['library_device_ms'])}, "
+                   f"max_abs_err {r['library_err']:.1e})")
         print(f"[kernels] time {name} {label} {dname}: kernel_ms {r['ms']:.4f} "
               f"(device {_ms(r['device_ms'])}) plain_ms {r['plain_ms']:.4f} "
-              f"(device {_ms(r['plain_device_ms'])}) library_ms {r['library_ms']:.4f} "
-              f"(device {_ms(r['library_device_ms'])}, max_abs_err "
-              f"{r['library_err']:.1e}) bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+              f"(device {_ms(r['plain_device_ms'])}) {lib} "
+              f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
     return rows
+
+
+def _check_mamba(gen):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mamba_scan as ms
+
+    rows = {}
+    for label, Bt, S, DI, N in MAMBA_CASES:
+        serving = not label.startswith("sweep")
+        for dname in ("float32",) if serving else ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            dt = (F.softplus(torch.randn(Bt, S, DI, generator=gen, device="cuda")) * 0.1
+                  ).to(dtype)
+            x = _inputs(gen, (Bt, S, DI), dtype)
+            Bc = _inputs(gen, (Bt, S, N), dtype)
+            Cc = _inputs(gen, (Bt, S, N), dtype)
+            A = -torch.exp(0.2 * torch.randn(DI, N, generator=gen, device="cuda"))
+            D = torch.randn(DI, generator=gen, device="cuda")
+            h0 = torch.randn(Bt, DI, N, generator=gen, device="cuda") if serving else None
+            args = (dt, x, Bc, Cc, A, D, h0)
+            y, h = ms.mamba_scan(*args)
+            ry, rh = ms.mamba_scan_plain(*args)
+            torch.cuda.synchronize()
+            tol = SCAN_TOL[dname]
+            err = (y.float() - ry.float()).abs().max().item()
+            h_err = (h - rh).abs().max().item()
+            ok = (torch.allclose(y.float(), ry.float(), rtol=tol, atol=tol)
+                  and torch.allclose(h, rh, rtol=tol, atol=tol))
+            print(f"[kernels] mamba_scan {label} Bt{Bt} S{S} DI{DI} N{N} h0={h0 is not None} "
+                  f"{dname}: max_abs_err y {err:.3e} h_S {h_err:.3e} (tol {tol:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"mamba_scan {label} {dname} disagrees with its plain version")
+            if serving:
+                rows[("mamba_scan", label, dname)] = _time_mamba(ms, args, dname,
+                                                                 max(err, h_err))
+    return rows
+
+
+def _time_mamba(ms, args, dname, err):
+    dt, x, Bc, Cc, A, D, h0 = args
+    Bt, S, DI = x.shape
+    N = Bc.shape[2]
+    # each input read once, y and h_S written once; per (t, channel, state) an
+    # exp and 6 float32 operations, per (t, channel) 3 (dt*x and D*x + y)
+    nbytes = ((dt.numel() + 2 * x.numel() + Bc.numel() + Cc.numel()) * x.element_size()
+              + (A.numel() + D.numel() + (1 + (h0 is not None)) * Bt * DI * N) * 4)
+    b_ms, b_by = bound_ms(nbytes, Bt * S * DI * (7.0 * N + 3), dname)
+    kern = lambda: ms.mamba_scan(*args)
+    plain = lambda: ms.mamba_scan_plain(*args)
+    plain_iters = max(5, 1600 // S)      # the plain loop makes ~5 torch calls per step
+    return {"shape": f"Bt{Bt} S{S} DI{DI} N{N}", "max_abs_err": err,
+            "ms": time_ms(kern), "device_ms": device_ms(kern),
+            "plain_ms": time_ms(plain, iters=plain_iters, warmup=2),
+            "plain_device_ms": device_ms(plain, iters=plain_iters),
+            "library_ms": None, "library_device_ms": None, "library_err": None,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _time_flash(F, fa, q, k, v, causal, window, dname, err):
@@ -296,6 +382,7 @@ def phase_engine():
     from repro_torch.core.types import FunctionConfig, Request
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.serving.engine import Engine
 
     store = ConfigStore()
@@ -307,6 +394,7 @@ def phase_engine():
     rng = np.random.default_rng(0)
     fa.flash_attention.launches = 0
     dec.decode_attention.launches = 0
+    ms.mamba_scan.launches = 0
     t0 = time.perf_counter()
     reqs, results = [], []
     for _ in range(24):   # the mix of examples/emulate_workers.py
@@ -345,50 +433,148 @@ def phase_engine():
     print(f"[engine] kernel launches: {launches} "
           f"(per request: {launches['flash_attention'] / 24:.2f} flash, "
           f"{launches['decode_attention'] / 24:.2f} decode)")
-    _profile_engine(engine, Request)
+    _profile_engine(engine, Request, "tiny-gen", "tiny_lm", (4, 9, 14, 19, 23, 6, 11, 17),
+                    ("flash_fwd_kernel", "decode_partial_kernel", "decode_combine_kernel"))
     return launches
 
 
-def _profile_engine(engine, Request):
-    """Device busy share of a warm pass (8 tiny_lm requests) and where the
-    device time goes, from the profiler's CUDA activity."""
+def phase_engine_mamba():
+    """falcon_mamba_7b at full width and depth in bfloat16 through the Engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config_store import ConfigStore, ImageRegistry
+    from repro_torch.core.router import build_tree
+    from repro_torch.core.simulator import summarize
+    from repro_torch.core.types import FunctionConfig, Request
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.serving.engine import Engine
+
+    n_req = 8
+    store = ConfigStore()
+    store.put(FunctionConfig(name="ssm-gen", arch="falcon_mamba_7b", concurrency=2,
+                             gen_tokens=4, idle_timeout_s=60.0))
+    engine = Engine(build_tree(2, fanout=2), store, ImageRegistry(), max_len=64,
+                    device="cuda")
+    rng = np.random.default_rng(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    fa.flash_attention.launches = 0
+    dec.decode_attention.launches = 0
+    ms.mamba_scan.launches = 0
+    t0 = time.perf_counter()
+    reqs, results = [], []
+    for _ in range(n_req):   # prompt sizes and run points drawn as in phase 4's mix
+        req = Request(fn="ssm-gen", arrival_t=0.0, size=int(rng.integers(4, 24)))
+        reqs.append(req)
+        engine.submit(req)
+        if rng.random() < 0.4:
+            results.extend(engine.run())
+    results.extend(engine.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mamba_scan": ms.mamba_scan.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    check(len(results) == n_req and all(r.ok for r in results),
+          f"{sum(r.ok for r in results)}/{len(results)} of {n_req} falcon requests ok")
+    check({r.rid for r in results} == {r.rid for r in reqs}, "falcon request ids lost")
+    tel = engine.telemetry()
+    check(len(tel) == n_req and all(len(t.features()) == 7 and t.latency > 0 for t in tel),
+          "falcon telemetry rows missing, short or without latency")
+    check(launches["mamba_scan"] > 0, "the engine never launched mamba_scan")
+    check(fa.flash_attention.launches == dec.decode_attention.launches == 0,
+          "an attention kernel ran in an attention-free model")
+    insts = [i for w in engine.workers.values() for il in w.instances.values() for i in il]
+    check(all(len(toks) == 5 for i in insts for toks in i.generated.values()),
+          "a falcon request did not generate its first token plus gen_tokens=4")
+    tokens = sum(len(toks) for i in insts for toks in i.generated.values())
+    s = summarize(results)
+    cfg = get_config("falcon_mamba_7b")
+    print(f"[engine-ssm] falcon_mamba_7b {cfg.dtype}, {cfg.num_layers} layers: "
+          f"{s['ok']}/{s['n']} ok in {wall:.3f} s: p50 {s['p50'] * 1e3:.1f} ms "
+          f"p99 {s['p99'] * 1e3:.1f} ms cold_rate {s['cold_rate']:.2f} (prompt sizes {[r.size for r in reqs]})")
+    for i in insts:
+        print(f"[engine-ssm] instance {i.iid} cold start {i.cold_start_s:.3f} s = "
+              f"materialization {i.materialize_s:.3f} s + warm-up {i.warmup_s:.3f} s "
+              f"+ rest {i.cold_start_s - i.materialize_s - i.warmup_s:.3f} s")
+    print(f"[engine-ssm] generated {tokens} tokens, {tokens / wall:.1f} tokens/s end to end")
+    print(f"[engine-ssm] device memory: max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"(allocated before the phase {mem0 / 2**30:.2f} GiB)")
+    print(f"[engine-ssm] kernel launches: {launches} (per request "
+          f"{launches['mamba_scan'] / n_req:.2f}; one per layer per prefill, warm-up "
+          f"prefill included)")
+    # one model call of each kind on the image's weights, after the counts
+    # were read: host wall per call (CUDA events) against device time
+    inst = insts[0]
+    tok = torch.zeros(inst.slots, dtype=torch.int32, device="cuda")
+    step = lambda: inst.model.decode_step(inst.kv.cache, {"token": tok,
+                                                          "pos": inst.kv.positions()})
+    prompt = torch.zeros((1, 32), dtype=torch.int32, device="cuda")
+    prefill = lambda: inst.model.prefill({"tokens": prompt})
+    for name, fn in ((f"decode step ({inst.slots} slots)", step), ("prefill S32", prefill)):
+        wall_ms, dev_ms = time_ms(fn, iters=10, warmup=2), device_ms(fn, iters=5)
+        print(f"[engine-ssm] {name}: {wall_ms:.2f} ms per call, device {_ms(dev_ms)} ms "
+              f"(busy {dev_ms / wall_ms:.1%})" if dev_ms else
+              f"[engine-ssm] {name}: {wall_ms:.2f} ms per call, device not measured")
+    _profile_engine(engine, Request, "ssm-gen", "falcon_mamba_7b", (4, 9, 14, 19),
+                    ("mamba_scan_kernel",))
+    return launches
+
+
+def _profile_engine(engine, Request, fn, arch, sizes, port_kernels):
+    """Device busy share of a warm pass and where the device time goes, from
+    the profiler's CUDA activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for size in (4, 9, 14, 19, 23, 6, 11, 17):
-            engine.submit(Request(fn="tiny-gen", arrival_t=0.0, size=size))
+        for size in sizes:
+            engine.submit(Request(fn=fn, arrival_t=0.0, size=size))
         res = engine.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check(len(res) == 8 and all(r.ok for r in res), "profiled pass lost requests")
+    check(len(res) == len(sizes) and all(r.ok for r in res), "profiled pass lost requests")
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
     busy = sum(by_name.values())
-    print(f"[engine] warm pass, 8 tiny_lm requests: wall {wall:.3f} s, device busy "
+    print(f"[engine] warm pass, {len(sizes)} {arch} requests: wall {wall:.3f} s, device busy "
           f"{busy * 1e3:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"[engine]   {t * 1e3:8.3f} ms {t / busy:6.1%}  {name[:90]}")
-    for kernel in ("flash_fwd_kernel", "decode_partial_kernel", "decode_combine_kernel"):
+    for kernel in port_kernels:
         t = sum(v for k, v in by_name.items() if kernel in k)
         print(f"[engine]   {t * 1e3:8.3f} ms {t / busy:6.1%}  {kernel} (port)")
 
 
 def phase_parity():
+    from repro_torch.configs import get_config
+
+    _parity(replace(get_config("tiny_lm"), dtype="float32"), "tiny_lm")
+    _parity(replace(get_config("falcon_mamba_7b"), dtype="float32", num_layers=2),
+            "falcon_mamba_7b (2 layers, full width)")
+
+
+def _parity(cfg, label, B=2, S0=16, W=32, steps=4):
+    """The f32 model on the card (kernels) against the same weights on the CPU
+    (plain versions): logits and greedy tokens at every step, then every
+    cache tensor (k/v, or the conv window and the SSM state)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import LM
 
-    cfg = replace(get_config("tiny_lm"), dtype="float32")
     gpu = LM(cfg, device="cuda", seed=11)
-    cpu = LM(cfg, device="cpu", seed=11)
-    B, S0, W, steps = 2, 16, 32, 4
+    cpu = LM(cfg, device="cpu")          # the CPU's draws differ from the card's
+    cpu.load_state_dict(gpu.state_dict())
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S0)).astype(np.int32)
     caches, logits = {}, {}
     for name, lm in (("gpu", gpu), ("cpu", cpu)):
@@ -396,7 +582,7 @@ def phase_parity():
         cache = lm.init_cache(B, W)
         for cs, ps in zip(cache["slots"], pc["slots"]):
             for n in cs:
-                cs[n][:, :, :S0] = ps[n]
+                cs[n][:, :, :ps[n].shape[2]] = ps[n]    # k/v: S0 of W rows; conv/ssm whole
         caches[name], logits[name] = cache, lg
     worst = 0.0
     for t in range(S0, S0 + steps + 1):
@@ -404,7 +590,7 @@ def phase_parity():
         err = (g - c).abs().max().item()
         worst = max(worst, err)
         check(torch.allclose(g, c, rtol=LOGIT_TOL, atol=LOGIT_TOL),
-              f"tiny_lm f32 logits at position {t - 1}: max_abs_err {err:.3e}")
+              f"{label} f32 logits at position {t - 1}: max_abs_err {err:.3e}")
         tok_g, tok_c = g.argmax(-1), c.argmax(-1)
         check(torch.equal(tok_g, tok_c), f"greedy tokens differ: {tok_g} vs {tok_c}")
         if t == S0 + steps:
@@ -413,8 +599,17 @@ def phase_parity():
             batch = {"token": tok_c.to(torch.int32).to(lm.device),
                      "pos": torch.full((B,), t, dtype=torch.int32, device=lm.device)}
             logits[name], caches[name] = lm.decode_step(caches[name], batch)
-    print(f"[parity] tiny_lm f32 prefill + {steps} decode steps, card vs CPU: "
-          f"max_abs_err {worst:.3e} (tol {LOGIT_TOL:g}), greedy tokens equal")
+    cache_err = {}
+    for gs, cs in zip(caches["gpu"]["slots"], caches["cpu"]["slots"]):
+        for n in cs:
+            g = gs[n].float().cpu()
+            e = (g - cs[n].float()).abs().max().item()
+            cache_err[n] = max(cache_err.get(n, 0.0), e)
+            check(torch.allclose(g, cs[n].float(), rtol=LOGIT_TOL, atol=LOGIT_TOL),
+                  f"{label} f32 cache {n!r} after {steps} decode steps: max_abs_err {e:.3e}")
+    errs = " ".join(f"{n} {e:.3e}" for n, e in cache_err.items())
+    print(f"[parity] {label} f32 prefill + {steps} decode steps, card vs CPU: logits "
+          f"max_abs_err {worst:.3e}, caches {errs} (tol {LOGIT_TOL:g}), greedy tokens equal")
 
 
 def main() -> int:
@@ -430,6 +625,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     launches = phase_engine()
+    launches.update(phase_engine_mamba())
     phase_parity()
 
     kernels = []
@@ -447,6 +643,16 @@ def main() -> int:
                         "device_ms": r["device_ms"], "plain_device_ms": r["plain_device_ms"],
                         "library_device_ms": r["library_device_ms"],
                         "shape": f"{label}: {r['shape']}", "dtype": "bfloat16"})
+    r = rows[("mamba_scan", MAMBA_LINE, "float32")]
+    kernels.append({"name": "mamba_scan", "route": "cuda",
+                    "source": "src/repro_torch/csrc/mamba_scan.cu",
+                    "replaces": "src/repro/kernels/mamba_scan.py:68",
+                    "launches": launches["mamba_scan"], "max_abs_err": r["max_abs_err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": None,
+                    "device_ms": r["device_ms"], "plain_device_ms": r["plain_device_ms"],
+                    "library_device_ms": None,
+                    "shape": f"{MAMBA_LINE}: {r['shape']}", "dtype": "float32"})
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,8 @@
 Its own copy of the JAX package's ``configs/base.py`` (the port imports
 nothing of that package): :class:`ModelConfig` with its layer pattern and
 exact ``param_count``, the registry, and ``reduced`` for small test models.
-Only the serving demo configs are registered; the input-shape table of the
-dry run is not ported yet.  Configs are plain frozen dataclasses, so a JAX
+The serving demo configs and ``falcon_mamba_7b`` are registered; the
+input-shape table of the dry run is not ported yet.  Configs are plain frozen dataclasses, so a JAX
 config moves to the port through ``to_json``/``from_json``.
 """
 from __future__ import annotations
@@ -206,7 +206,8 @@ def list_configs() -> Sequence[str]:
 
 def _load_all() -> None:
     import importlib
-    importlib.import_module("repro_torch.configs.hyperfaas_demo")
+    for mod in ("hyperfaas_demo", "falcon_mamba_7b"):
+        importlib.import_module(f"repro_torch.configs.{mod}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,11 @@
 """Core layers and parameter specs, ported from the JAX package's ``models/layers.py``.
 
-Params are described once by :class:`ParamSpec`; :func:`init_param` draws
-them from a ``torch.Generator`` on the CPU in float32 before the cast and the
-move to the device, so a seed gives the same weights on every device.
+Params are described once by :class:`ParamSpec`; :func:`init_param` fills a
+parameter that already lies on its device, in its dtype, from a
+``torch.Generator`` on that device (float32 draws, then the cast), so a
+7B-parameter model is drawn on the card and never staged in host memory. A
+seed gives the same weights on one device type in every process; the CPU's
+and the card's generators give different weights.
 
 The primitive layers are plain functions on tensors and keep the JAX
 package's rounding order, so the two agree in bf16 as well as in f32.
@@ -22,22 +25,42 @@ import torch.nn.functional as F
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"                 # normal | zeros | ones
+    init: str = "normal"                 # normal | zeros | ones | mamba_a | mamba_dt
     scale: float = 1.0                   # fan-in style scale for "normal"
 
 
-def init_param(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
-    """float32 CPU tensor for ``spec``; the caller casts and moves it."""
+def init_param(spec: ParamSpec, gen: torch.Generator,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fill ``out`` for ``spec`` from ``gen`` and return it.
+
+    ``out`` lies on the generator's device, in any dtype, with the spec's
+    shape or the shape of one period's slice of it (``spec.shape[1:]``); the
+    fan-in always follows the whole spec. Random values are drawn in float32
+    on that device, then cast. Without ``out``, a float32 tensor of the
+    spec's shape is made on the generator's device.
+    """
+    if out is None:
+        out = torch.empty(spec.shape, device=gen.device)
     if spec.init == "zeros":
-        return torch.zeros(spec.shape)
+        return out.zero_()
     if spec.init == "ones":
-        return torch.ones(spec.shape)
+        return out.fill_(1.0)
+    if spec.init == "mamba_a":
+        # A_log: log of [1..d_state] broadcast over d_inner (mamba1 S4D-real)
+        n = spec.shape[-1]
+        return out.copy_(torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                                device=out.device)).expand(out.shape))
+    if spec.init == "mamba_dt":
+        # dt_proj bias: softplus^-1 of dt in [1e-3, 1e-1] log-uniform
+        u = torch.rand(out.shape, generator=gen, device=out.device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return out.copy_(torch.log(torch.expm1(dt)))
     if spec.init == "normal":
         fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
         if len(spec.shape) >= 3:  # stacked [L, fan_in, ...]
             fan_in = spec.shape[-2]
         std = spec.scale / math.sqrt(fan_in)
-        return std * torch.randn(spec.shape, generator=gen)
+        return out.copy_(std * torch.randn(out.shape, generator=gen, device=out.device))
     raise ValueError(f"init {spec.init!r} is not ported yet")
 
 

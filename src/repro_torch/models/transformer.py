@@ -12,8 +12,13 @@ Modes:
   updates in place (the JAX function returns a new cache; the port writes
   one row per layer instead of copying the cache each step)
 
-Only attention blocks with a dense MLP are ported in this slice: Mamba and
-MoE slots raise ``NotImplementedError``.
+Attention slots with a dense MLP and Mamba slots are ported; MoE slots and
+the audio/vision frontends raise ``NotImplementedError``.
+
+Parameters are allocated on the target device in the model's dtype and drawn
+there, one period slice at a time, from a generator on that device: a 7B
+model is never staged in host memory, and its weights depend on the seed and
+the device type.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from torch import nn
 from repro_torch.configs.base import BLOCK_ATTN, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.layers import ParamSpec, init_param, mlp, rms_norm, sinusoidal_pos
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -47,14 +53,19 @@ def torch_dtype(name: str) -> torch.dtype:
 class _Slot(nn.Module):
     """The parameters of one period slot, stacked over the K periods."""
 
-    def __init__(self, specs: Dict[str, ParamSpec]):
+    def __init__(self, specs: Dict[str, ParamSpec], device: torch.device,
+                 dtype: torch.dtype):
         super().__init__()
         for name, spec in specs.items():
-            self.register_parameter(
-                name, nn.Parameter(torch.empty(spec.shape), requires_grad=False))
+            self.register_parameter(name, _param(spec, device, dtype))
 
     def period(self, k: int) -> Dict[str, torch.Tensor]:
         return {name: p[k] for name, p in self.named_parameters()}
+
+
+def _param(spec: ParamSpec, device: torch.device, dtype: torch.dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(spec.shape, device=device, dtype=dtype),
+                        requires_grad=False)
 
 
 class LM(nn.Module):
@@ -62,13 +73,17 @@ class LM(nn.Module):
 
     ``device=None`` means the card (and raises without one); pass ``"cpu"``
     to run on the CPU with the kernels' plain versions. Weights are drawn
-    from ``seed`` with a CPU ``torch.Generator``, so they do not depend on the
-    device.
+    from ``seed`` with a ``torch.Generator`` on that device, so one seed gives
+    the same weights on one device type and different weights on the CPU
+    and the card: to compare the two, load one model's ``state_dict`` into
+    the other.
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
         self.cfg = cfg
+        dev = resolve_device(device)
+        dtype = torch_dtype(cfg.dtype)
         self.period = self._period(cfg)
         if cfg.num_layers % self.period:
             raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not fill "
@@ -80,25 +95,18 @@ class LM(nn.Module):
         self.slot_kinds: List[SlotKind] = []
         for s in range(self.period):
             kind = cfg.block_kind(s)
-            if kind != BLOCK_ATTN or cfg.is_moe_layer(s):
-                raise NotImplementedError(f"{cfg.name}: Mamba and MoE slots are not "
-                                          f"ported yet")
+            if cfg.is_moe_layer(s):
+                raise NotImplementedError(f"{cfg.name}: MoE slots are not ported yet")
             local = cfg.is_local_attn(s)
             theta = 10000.0 if cfg.sliding_window and local else cfg.rope_theta
             self.slot_kinds.append(SlotKind(kind, False, local, theta))
 
         specs = self.param_specs()
-        self.embed = nn.Parameter(torch.empty(specs["embed"].shape), requires_grad=False)
-        if "unembed" in specs:
-            self.unembed = nn.Parameter(torch.empty(specs["unembed"].shape),
-                                        requires_grad=False)
-        else:
-            self.unembed = None
-        self.final_norm = nn.Parameter(torch.empty(specs["final_norm"].shape),
-                                       requires_grad=False)
-        self.slots = nn.ModuleList(_Slot(ps) for ps in specs["slots"])
+        self.embed = _param(specs["embed"], dev, dtype)
+        self.unembed = _param(specs["unembed"], dev, dtype) if "unembed" in specs else None
+        self.final_norm = _param(specs["final_norm"], dev, dtype)
+        self.slots = nn.ModuleList(_Slot(ps, dev, dtype) for ps in specs["slots"])
         self.init_params(seed, specs)
-        self.to(device=resolve_device(device), dtype=torch_dtype(cfg.dtype))
 
     @staticmethod
     def _period(cfg: ModelConfig) -> int:
@@ -131,15 +139,29 @@ class LM(nn.Module):
         specs["final_norm"] = ParamSpec((D,), init="zeros")
         H, KV, hd = c.num_heads, c.num_kv_heads, c.head_dim
         slot_specs = []
-        for _ in self.slot_kinds:
-            ps = {"norm1": ParamSpec((K, D), init="zeros"),
-                  "wq": ParamSpec((K, D, H * hd)),
-                  "wk": ParamSpec((K, D, KV * hd)),
-                  "wv": ParamSpec((K, D, KV * hd)),
-                  "wo": ParamSpec((K, H * hd, D))}
-            if c.qk_norm:
-                ps["q_norm"] = ParamSpec((K, hd), init="zeros")
-                ps["k_norm"] = ParamSpec((K, hd), init="zeros")
+        for sk in self.slot_kinds:
+            ps = {"norm1": ParamSpec((K, D), init="zeros")}
+            if sk.kind == BLOCK_ATTN:
+                ps["wq"] = ParamSpec((K, D, H * hd))
+                ps["wk"] = ParamSpec((K, D, KV * hd))
+                ps["wv"] = ParamSpec((K, D, KV * hd))
+                ps["wo"] = ParamSpec((K, H * hd, D))
+                if c.qk_norm:
+                    ps["q_norm"] = ParamSpec((K, hd), init="zeros")
+                    ps["k_norm"] = ParamSpec((K, hd), init="zeros")
+            else:
+                m = c.mamba
+                DI = m.d_inner
+                ps["in_x"] = ParamSpec((K, D, DI))
+                ps["in_z"] = ParamSpec((K, D, DI))
+                ps["conv_w"] = ParamSpec((K, m.d_conv, DI))
+                ps["conv_b"] = ParamSpec((K, DI), init="zeros")
+                ps["x_proj"] = ParamSpec((K, DI, m.dt_rank + 2 * m.d_state))
+                ps["dt_proj"] = ParamSpec((K, m.dt_rank, DI))
+                ps["dt_bias"] = ParamSpec((K, DI), init="mamba_dt")
+                ps["A_log"] = ParamSpec((K, DI, m.d_state), init="mamba_a")
+                ps["D"] = ParamSpec((K, DI), init="ones")
+                ps["out_proj"] = ParamSpec((K, DI, D))
             ps["norm2"] = ParamSpec((K, D), init="zeros")
             if c.d_ff > 0:
                 ps["wi"] = ParamSpec((K, D, c.d_ff))
@@ -152,15 +174,19 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def init_params(self, seed: int, specs: Optional[dict] = None) -> None:
-        """Draw every parameter from ``seed`` (float32 on the CPU, then cast)."""
+        """Draw every parameter from ``seed`` on its own device, a slot's
+        stacked parameters one period slice at a time (float32 draws of one
+        slice, then the cast)."""
         specs = specs or self.param_specs()
-        gen = torch.Generator(device="cpu").manual_seed(seed)
-        flat = {k: v for k, v in specs.items() if k != "slots"}
-        for s, ps in enumerate(specs["slots"]):
-            flat.update({f"slots.{s}.{k}": v for k, v in ps.items()})
-        params = dict(self.named_parameters())
-        for name, spec in flat.items():
-            params[name].copy_(init_param(spec, gen))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for name in ("embed", "unembed", "final_norm"):
+            if name in specs:
+                init_param(specs[name], gen, getattr(self, name))
+        for slot, ps in zip(self.slots, specs["slots"]):
+            for name, spec in ps.items():
+                stacked = getattr(slot, name)
+                for k in range(self.num_periods):
+                    init_param(spec, gen, stacked[k])
 
     # ------------------------------------------------------------------
     # Embedding and head
@@ -185,7 +211,11 @@ class LM(nn.Module):
     def _block_seq(self, x, p, sk: SlotKind, positions):
         c = self.cfg
         h = rms_norm(x, p["norm1"], c.norm_eps)
-        h, cache = attn_mod.attn_forward(h, p, c, sk.is_local, positions, theta=sk.theta)
+        if sk.kind == BLOCK_ATTN:
+            h, cache = attn_mod.attn_forward(h, p, c, sk.is_local, positions,
+                                             theta=sk.theta)
+        else:
+            h, cache = mamba_mod.mamba_forward(h, p, c)
         x = x + h
         if c.d_ff > 0:
             x = x + self._mlp(rms_norm(x, p["norm2"], c.norm_eps), p)
@@ -194,8 +224,11 @@ class LM(nn.Module):
     def _block_decode(self, x, p, sk: SlotKind, cache, positions):
         c = self.cfg
         h = rms_norm(x, p["norm1"], c.norm_eps)
-        h, cache = attn_mod.attn_decode(h, p, c, sk.is_local, cache, positions,
-                                        theta=sk.theta)
+        if sk.kind == BLOCK_ATTN:
+            h, cache = attn_mod.attn_decode(h, p, c, sk.is_local, cache, positions,
+                                            theta=sk.theta)
+        else:
+            h, cache = mamba_mod.mamba_decode(h, p, c, cache)
         x = x + h
         if c.d_ff > 0:
             x = x + self._mlp(rms_norm(x, p["norm2"], c.norm_eps)[:, None], p)[:, 0]
@@ -220,7 +253,7 @@ class LM(nn.Module):
         if not want_cache:
             return x, None
         caches = [{name: torch.stack([pc[s][name] for pc in per_period])
-                   for name in ("k", "v")} for s in range(self.period)]
+                   for name in per_period[0][s]} for s in range(self.period)]
         return x, caches
 
     def prefill(self, batch):
@@ -235,7 +268,7 @@ class LM(nn.Module):
     @torch.no_grad()
     def decode_step(self, cache, batch):
         """batch: {token: [B] int, pos: [B] int}. Returns (logits, cache); the
-        cache is updated in place."""
+        cache is updated in place (every block writes its layer's slice)."""
         x = self.embed[batch["token"].to(self.device)]
         positions = batch["pos"].to(self.device)
         for k in range(self.num_periods):
@@ -254,19 +287,29 @@ class LM(nn.Module):
         return max_len
 
     def cache_specs(self, batch_size: int, max_len: int):
-        """Shapes and dtype of the decode cache: per slot k/v [K, B, W, KV, hd]."""
+        """``(shape, dtype)`` of every decode-cache tensor, per slot: attention
+        k/v [K, B, W, KV, hd] in the model's dtype; Mamba conv [K, B, d_conv-1,
+        DI] in the model's dtype and ssm [K, B, DI, N] in float32 whatever the
+        model's dtype, as in the JAX package."""
         c = self.cfg
+        K = self.num_periods
         specs = []
         for sk in self.slot_kinds:
-            W = self._cache_width(sk, max_len)
-            sh = (self.num_periods, batch_size, W, c.num_kv_heads, c.head_dim)
-            specs.append({"k": sh, "v": sh})
-        return {"slots": specs}, self.dtype
+            if sk.kind == BLOCK_ATTN:
+                W = self._cache_width(sk, max_len)
+                sh = (K, batch_size, W, c.num_kv_heads, c.head_dim)
+                specs.append({"k": (sh, self.dtype), "v": (sh, self.dtype)})
+            else:
+                m = c.mamba
+                specs.append({
+                    "conv": ((K, batch_size, m.d_conv - 1, m.d_inner), self.dtype),
+                    "ssm": ((K, batch_size, m.d_inner, m.d_state), torch.float32)})
+        return {"slots": specs}
 
     def init_cache(self, batch_size: int, max_len: int):
-        specs, dt = self.cache_specs(batch_size, max_len)
+        specs = self.cache_specs(batch_size, max_len)
         return {"slots": [{name: torch.zeros(sh, dtype=dt, device=self.device)
-                           for name, sh in s.items()} for s in specs["slots"]]}
+                           for name, (sh, dt) in s.items()} for s in specs["slots"]]}
 
 
 def build_model(cfg: ModelConfig, **kw) -> LM:

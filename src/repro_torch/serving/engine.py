@@ -4,9 +4,11 @@ continuous batching, measured cold starts, idle lifecycle and full
 telemetry — paper Fig. 2 step 1's "actual server".
 
 A :class:`Worker` owns function instances; an instance is (an ``LM``, a
-``SlotCache``). Cold start = parameter materialization plus a warm-up
-prefill and decode, wall-clocked up to ``torch.cuda.synchronize()`` and
-charged to the triggering request — the HyperFaaS analogue of a container
+``SlotCache``). Cold start = parameter materialization (allocation and
+seeded draws on the device) plus a warm-up prefill and decode, each
+wall-clocked up to ``torch.cuda.synchronize()`` (``materialize_s`` and
+``warmup_s``; both 0 for a replica that hits the image cache) and charged
+to the triggering request — the HyperFaaS analogue of a container
 pull + boot. Building the CUDA kernels is set-up, done before serving, and is
 not part of any cold start.
 
@@ -69,9 +71,12 @@ class Instance:
         slots = cfg.concurrency if cfg.concurrency > 0 else cfg.max_instances_per_worker
         self.slots = slots
         key = (cfg.arch, slots, max_len, str(self.device))
+        self.materialize_s = self.warmup_s = 0.0
         if key not in _IMAGE_CACHE:
             model = build_model(get_config(cfg.arch), device=self.device,
                                 seed=weight_seed(cfg.arch))
+            _sync(self.device)
+            self.materialize_s = time.monotonic() - t0
             # warm-up: the first prefill and decode at serving shapes
             kv0 = SlotCache(model, slots, max_len)
             model.prefill({"tokens": torch.zeros((1, 16), dtype=torch.int32,
@@ -79,6 +84,7 @@ class Instance:
             zeros = torch.zeros(slots, dtype=torch.int32, device=self.device)
             model.decode_step(kv0.cache, {"token": zeros, "pos": zeros})
             _sync(self.device)
+            self.warmup_s = time.monotonic() - t0 - self.materialize_s
             _IMAGE_CACHE[key] = model
         self.model = _IMAGE_CACHE[key]
         self.kv = SlotCache(self.model, slots, max_len)

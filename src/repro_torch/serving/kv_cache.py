@@ -31,7 +31,11 @@ class SlotCache:
     @torch.no_grad()
     def admit(self, slot: int, prefill_cache, prompt_len: int, rid: int,
               gen_tokens: int):
-        """Insert a prefilled (batch=1) sequence into `slot`."""
+        """Insert a prefilled (batch=1) sequence into `slot`.
+
+        Attention k/v of prefill width S0 <= W are zero-padded into the row;
+        a Mamba slot's conv window and SSM state go in whole, each in the
+        cache's own dtype (the state stays float32)."""
         for c_slot, p_slot in zip(self.cache["slots"], prefill_cache["slots"]):
             for name, c in c_slot.items():
                 p = p_slot[name].to(c.dtype)

@@ -103,3 +103,80 @@ def test_engine_on_the_card_goes_through_both_kernels(card):
     res = engine.run()
     assert len(res) == 5 and all(r.ok for r in res)
     assert fa.flash_attention.launches > 0 and dec.decode_attention.launches > 0
+
+
+SCAN_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}   # tests/test_kernels.py:78-79
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,S,DI,N,with_h0", [
+    (1, 32, 8192, 16, True),           # the falcon_mamba_7b prefill
+    (2, 128, 64, 8, False),            # the JAX sweep
+    (2, 77, 100, 4, True),             # ragged: S past a chunk, DI not a block multiple
+    (3, 5, 48, 32, True),
+])
+def test_mamba_scan_kernel_matches_plain(card, Bt, S, DI, N, with_h0, dtype):
+    from repro_torch.kernels import mamba_scan as ms
+    gen = torch.Generator(device=card).manual_seed(S + DI)
+    dt = (torch.nn.functional.softplus(torch.randn(Bt, S, DI, generator=gen, device=card))
+          * 0.1).to(dtype)
+    x = _randn(gen, (Bt, S, DI), dtype, card)
+    proj = _randn(gen, (Bt, S, 8 + 2 * N), dtype, card)
+    Bc, Cc = proj[..., 8:8 + N], proj[..., 8 + N:]           # strided views, no copy
+    A = -torch.exp(0.2 * torch.randn(DI, N, generator=gen, device=card))
+    D = torch.randn(DI, generator=gen, device=card)
+    h0 = torch.randn(Bt, DI, N, generator=gen, device=card) if with_h0 else None
+    n = ms.mamba_scan.launches
+    y, h = ms.mamba_scan(dt, x, Bc, Cc, A, D, h0)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == n + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    ry, rh = ms.mamba_scan_plain(dt, x, Bc, Cc, A, D, h0)
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), ry.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, rh, rtol=tol, atol=tol)
+
+
+def test_mamba_scan_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels import mamba_scan as ms
+    x = torch.zeros(1, 8, 32, device=card)
+    Bc = torch.zeros(1, 8, 16, device=card)
+    A = torch.zeros(32, 16, device=card)
+    D = torch.zeros(32, device=card)
+    with pytest.raises(ValueError, match="d_state"):
+        ms.mamba_scan(x, x, Bc[..., :6], Bc[..., :6], A[:, :6].contiguous(), D)
+    with pytest.raises(TypeError):
+        ms.mamba_scan(x.half(), x.half(), Bc.half(), Bc.half(), A, D)
+    with pytest.raises(TypeError, match="float32 A"):
+        ms.mamba_scan(x, x, Bc, Bc, A.bfloat16(), D)
+    with pytest.raises(ValueError, match="h0"):
+        ms.mamba_scan(x, x, Bc, Bc, A, D, torch.zeros(2, 32, 16, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.mamba_scan(x, x, Bc, Bc, torch.zeros(16, 32, device=card).T, D)
+
+
+def test_engine_on_the_card_serves_falcon_mamba_through_b3(card, monkeypatch):
+    """falcon_mamba_7b at full width, depth cut to 2 layers under its own name."""
+    from dataclasses import replace
+
+    from repro_torch.configs import base as port_configs
+    from repro_torch.core.config_store import ConfigStore, ImageRegistry
+    from repro_torch.core.router import build_tree
+    from repro_torch.core.types import FunctionConfig, Request
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.serving.engine import Engine
+
+    cfg = replace(port_configs.get_config("falcon_mamba_7b"), name="falcon_mamba_7b_l2",
+                  num_layers=2)
+    monkeypatch.setitem(port_configs._REGISTRY, cfg.name, cfg)
+    store = ConfigStore()
+    store.put(FunctionConfig(name="ssm", arch=cfg.name, concurrency=2, gen_tokens=4))
+    engine = Engine(build_tree(2, fanout=2), store, ImageRegistry(), max_len=64)
+    ms.mamba_scan.launches = 0
+    for size in (4, 9, 17, 23):
+        engine.submit(Request(fn="ssm", arrival_t=0.0, size=size))
+    res = engine.run()
+    assert len(res) == 4 and all(r.ok for r in res)
+    assert ms.mamba_scan.launches >= 2 * 4      # a launch per layer per prefill
+    insts = [i for w in engine.workers.values() for i in w.instances.get("ssm", [])]
+    assert all(len(t) == 5 for i in insts for t in i.generated.values())

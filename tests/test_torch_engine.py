@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from repro.configs import base as jax_configs  # noqa: E402
+from repro.configs import reduced  # noqa: E402
 from repro.core.config_store import ConfigStore as JaxConfigStore  # noqa: E402
 from repro.core.config_store import ImageRegistry as JaxImageRegistry  # noqa: E402
 from repro.core.types import FunctionConfig as JaxFunctionConfig  # noqa: E402
@@ -136,22 +137,46 @@ def test_weight_seed_is_stable():
     assert weight_seed("tiny_lm") != weight_seed("small_lm")
 
 
+def _register_both(monkeypatch, jcfg):
+    """``jcfg`` under its own name, in both registries for this test."""
+    monkeypatch.setitem(jax_configs._REGISTRY, jcfg.name, jcfg)
+    monkeypatch.setitem(port_configs._REGISTRY, jcfg.name,
+                        ModelConfig.from_json(jcfg.to_json()))
+    return jcfg.name
+
+
 @pytest.fixture
 def f32_tiny(monkeypatch):
     """tiny_lm in f32 under its own name, in both registries for this test."""
-    name = "tiny_lm_f32"
-    jcfg = replace(jax_configs.get_config("tiny_lm"), name=name, dtype="float32")
-    monkeypatch.setitem(jax_configs._REGISTRY, name, jcfg)
-    monkeypatch.setitem(port_configs._REGISTRY, name, ModelConfig.from_json(jcfg.to_json()))
-    return name
+    return _register_both(monkeypatch, replace(jax_configs.get_config("tiny_lm"),
+                                               name="tiny_lm_f32", dtype="float32"))
+
+
+@pytest.fixture
+def f32_falcon(monkeypatch):
+    """A reduced falcon_mamba_7b in f32 under its own name, in both registries."""
+    return _register_both(monkeypatch, replace(
+        reduced(jax_configs.get_config("falcon_mamba_7b")), name="falcon_mamba_f32",
+        dtype="float32"))
 
 
 def test_worker_tokens_match_the_jax_worker(f32_tiny, monkeypatch):
     """The port's Worker, with its image seeded from the JAX instance's bridged
     f32 weights, generates the JAX Worker's tokens for the same requests."""
+    _worker_parity(f32_tiny, monkeypatch)
+
+
+def test_falcon_mamba_worker_tokens_match_the_jax_worker(f32_falcon, monkeypatch):
+    """The same for Mamba slots: admission inserts the conv/ssm caches whole
+    (ssm in float32), and the prompt's pad tokens run through the scan into
+    the state handed to decode, as in the JAX engine."""
+    _worker_parity(f32_falcon, monkeypatch)
+
+
+def _worker_parity(arch, monkeypatch):
     sizes = [8, 20, 5, 13]
     jstore = JaxConfigStore()
-    jstore.put(JaxFunctionConfig(name="gen", arch=f32_tiny, concurrency=2, gen_tokens=4))
+    jstore.put(JaxFunctionConfig(name="gen", arch=arch, concurrency=2, gen_tokens=4))
     jw = JaxWorker("jw", jstore, JaxImageRegistry(), max_len=64)
     jreqs = [JaxRequest(fn="gen", arrival_t=0.0, size=s) for s in sizes]
     for r in jreqs:
@@ -159,12 +184,12 @@ def test_worker_tokens_match_the_jax_worker(f32_tiny, monkeypatch):
     assert len(jw.drain()) == len(sizes)
     jinst = jw.instances["gen"][0]     # both replicas share the image's weights
 
-    cfg = port_configs.get_config(f32_tiny)
+    cfg = port_configs.get_config(arch)
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(params_from_numpy(jax.tree.map(np.asarray, jinst.params)))
-    monkeypatch.setitem(port_engine._IMAGE_CACHE, (f32_tiny, 2, 64, "cpu"), lm)
+    monkeypatch.setitem(port_engine._IMAGE_CACHE, (arch, 2, 64, "cpu"), lm)
     store = ConfigStore()
-    store.put(FunctionConfig(name="gen", arch=f32_tiny, concurrency=2, gen_tokens=4))
+    store.put(FunctionConfig(name="gen", arch=arch, concurrency=2, gen_tokens=4))
     w = Worker("w", store, ImageRegistry(), max_len=64, device="cpu")
     reqs = [Request(fn="gen", arrival_t=0.0, size=s) for s in sizes]
     for r in reqs:

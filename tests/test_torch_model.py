@@ -34,12 +34,14 @@ def _run_parity(jcfg, B=2, S0=16, steps=4, W=32):
     toks = rng.integers(0, jcfg.vocab_size, (B, S0)).astype(np.int32)
     jlg, jcache = jax.jit(jm.prefill)(params, {"tokens": jnp.asarray(toks)})
     tlg, tcache = lm.prefill({"tokens": torch.as_tensor(toks)})
-    jcache = jax.tree.map(lambda d, s: d.at[:, :, :s.shape[2]].set(s),
+    # attention k/v fill the first S0 rows of width W; Mamba conv/ssm go in whole
+    jcache = jax.tree.map(lambda d, s: d.at[:, :, :s.shape[2]].set(s.astype(d.dtype)),
                           jm.init_cache(B, W), jcache)
     cache = lm.init_cache(B, W)
     for cs, ps in zip(cache["slots"], tcache["slots"]):
         for n in cs:
-            cs[n][:, :, :S0] = ps[n]
+            assert ps[n].dtype == cs[n].dtype, n
+            cs[n][:, :, :ps[n].shape[2]] = ps[n]
     dec = jax.jit(jm.decode_step)
     for t in range(S0, S0 + steps + 1):
         np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), rtol=TOL, atol=TOL,
@@ -71,6 +73,35 @@ def test_gemma3_reduced_ring_f32_parity():
     _run_parity(replace(reduced(jax_config("gemma3_12b")), dtype="float32"), S0=20, W=24)
 
 
+def test_falcon_mamba_reduced_f32_parity():
+    """Mamba slots: logits, greedy tokens and the final conv/ssm caches."""
+    _run_parity(replace(reduced(jax_config("falcon_mamba_7b")), dtype="float32"))
+
+
+def test_falcon_mamba_state_dict_and_caches_follow_the_jax_tree():
+    jcfg = reduced(jax_config("falcon_mamba_7b"))
+    jm = jax_build(jcfg)
+    lm = LM(ModelConfig.from_json(jcfg.to_json()), device="cpu")
+    flat = params_from_numpy(jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(1))))
+    assert set(flat) == set(lm.state_dict())
+    for name, t in lm.state_dict().items():
+        assert tuple(t.shape) == tuple(flat[name].shape), name
+        assert t.dtype == torch.bfloat16 == flat[name].dtype
+    jspecs, _ = jm.cache_specs(3, 32)
+    for cs, js in zip(lm.init_cache(3, 32)["slots"], jspecs["slots"]):
+        assert set(cs) == set(js) == {"conv", "ssm"}
+        for n, t in cs.items():
+            assert tuple(t.shape) == js[n].shape, n
+        assert cs["conv"].dtype == torch.bfloat16 and cs["ssm"].dtype == torch.float32
+    p = lm.state_dict()
+    n = jcfg.mamba.d_state
+    want_a = torch.log(torch.arange(1, n + 1, dtype=torch.float32)).to(torch.bfloat16)
+    assert torch.equal(p["slots.0.A_log"][1, 5], want_a)
+    dt = torch.nn.functional.softplus(p["slots.0.dt_bias"].float())
+    assert 0.9e-3 < dt.min() and dt.max() < 0.11      # inverse softplus of [1e-3, 1e-1]
+    assert torch.equal(p["slots.0.D"], torch.ones_like(p["slots.0.D"]))
+
+
 def test_state_dict_names_follow_the_jax_tree():
     jm = jax_build(jax_config("tiny_lm"))
     lm = LM(get_config("tiny_lm"), device="cpu")
@@ -100,7 +131,7 @@ def test_weights_follow_the_seed():
 
 
 def test_unported_families_raise():
-    for arch in ("falcon_mamba_7b", "moonshot_v1_16b", "phi3_vision"):
+    for arch in ("moonshot_v1_16b", "phi3_vision", "jamba15_large"):
         cfg = ModelConfig.from_json(reduced(jax_config(arch)).to_json())
         with pytest.raises(NotImplementedError):
             LM(cfg, device="cpu")

@@ -116,3 +116,38 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     out = subprocess.run([sys.executable, str(alone)], env=env, capture_output=True,
                          text=True, timeout=120, cwd=tmp_path)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_mamba_scan_wrapper_refuses_non_cuda_tensors():
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+
+    x = torch.zeros(1, 4, 8, device="meta")
+    Bc = torch.zeros(1, 4, 16, device="meta")
+    A, D = torch.zeros(8, 16, device="meta"), torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        ms.mamba_scan(x, x, Bc, Bc, A, D)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        ops.mamba_scan(x, x, Bc, Bc, A, D)
+    xc, Bcc = torch.zeros(1, 4, 8), torch.zeros(1, 4, 16)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        ms.mamba_scan(xc, xc, Bcc, Bcc, torch.zeros(8, 16), torch.zeros(8))
+    assert ms.mamba_scan.launches == 0
+
+
+def test_serve_cli_takes_falcon_mamba_on_the_cpu(monkeypatch, capsys):
+    """``--fn-arch falcon_mamba_7b`` needs no other flag; the registered
+    config is cut here to keep the CPU run short."""
+    from dataclasses import replace
+
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+
+    cfg = base.get_config("falcon_mamba_7b")
+    assert (cfg.num_layers, cfg.d_model, cfg.mamba.d_inner, cfg.vocab_size) == (
+        64, 4096, 8192, 65024)
+    monkeypatch.setitem(base._REGISTRY, "falcon_mamba_7b",
+                        replace(base.reduced(cfg), name="falcon_mamba_7b"))
+    serve.main(["--fn-arch", "falcon_mamba_7b", "--requests", "3", "--gen-tokens", "2",
+                "--device", "cpu"])
+    assert "ok=3/3" in capsys.readouterr().out
