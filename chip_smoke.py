@@ -7,15 +7,16 @@ Needs one CUDA card of compute capability 9.0 (an H100) and ``nvcc``; it
 imports nothing of JAX. Phases, each of which fails the run:
 
 1. environment: the card's name and power limit, torch, the capability;
-2. build: the three kernels of the serving paths from ``src/repro_torch/csrc``,
+2. build: the four kernels of the serving paths from ``src/repro_torch/csrc``,
    one ``nvcc`` each, all at once;
 3. kernels against their plain PyTorch versions on the card, at the serving
-   shapes and at the JAX package's sweep shapes: attention (B1, B2) in float32
-   (TF32 off) within 2e-4 and bfloat16 within 2e-2, the selective scan (B3)
-   within 2e-3 and 5e-2, its output and its final state; times of kernel,
-   plain version, bound and, for attention, one library call
-   (``scaled_dot_product_attention``, timed here only; no PyTorch call
-   computes a selective scan);
+   shapes and at the JAX package's sweep shapes: attention (B1, B2) and the
+   grouped matmul (B4, on layouts routed as moonshot_v1_16b routes) in
+   float32 (TF32 off) within 2e-4 and bfloat16 within 2e-2, the selective
+   scan (B3) within 2e-3 and 5e-2, its output and its final state; times of
+   kernel, plain version, bound and one library call where there is one
+   (``scaled_dot_product_attention`` for attention, ``torch._grouped_mm``
+   for B4, timed here only; no PyTorch call computes a selective scan);
 4. engine: the port's ``Engine`` serves 24 requests of ``tiny_lm`` (c=4) and
    ``small_lm`` (c=2) at full width in bfloat16, and must have launched B1
    and B2;
@@ -23,10 +24,17 @@ imports nothing of JAX. Phases, each of which fails the run:
    (c=2) at full width and depth (64 layers, bfloat16), and must have
    launched B3; cold start split into materialization and warm-up, peak
    device memory;
-6. model parity: an f32 ``tiny_lm`` and an f32 ``falcon_mamba_7b`` cut to 2
-   layers at full width, on the card (kernels) against the same weights on
-   the CPU (plain versions): logits and caches within 2e-3, greedy tokens
-   equal, over a prefill and 4 decode steps.
+6. engine: the port's ``Engine`` serves 8 requests of ``moonshot_v1_16b``
+   (c=2) at full width and depth (48 layers, 64 experts, top-6, bfloat16),
+   and must have launched B4 three times per layer per model call, B1 and
+   B2, and not B3; the same cold start, memory and timing report;
+7. model parity: an f32 ``tiny_lm``, and f32 ``falcon_mamba_7b`` and
+   ``moonshot_v1_16b`` cut to 2 layers at full width, on the card (kernels)
+   against the same weights on the CPU (plain versions): logits and caches
+   within 2e-3, greedy tokens equal, over a prefill and 4 decode steps.
+
+Between the engine phases the image cache is emptied, so that the card
+holds one large image at a time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -34,6 +42,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -63,6 +72,8 @@ FLASH_CASES = [
     ("small_lm S32", 1, 32, 8, 8, 64, True, 0),
     ("small_lm S64", 1, 64, 8, 8, 64, True, 0),
     ("small_lm S256", 1, 256, 8, 8, 64, True, 0),
+    ("moonshot S16", 1, 16, 16, 16, 128, True, 0),
+    ("moonshot S32", 1, 32, 16, 16, 128, True, 0),
     ("sweep", 2, 256, 4, 2, 64, True, 0),
     ("sweep bidir", 1, 256, 4, 4, 128, False, 0),
     ("sweep window", 2, 512, 8, 2, 64, True, 100),
@@ -75,6 +86,7 @@ DECODE_CASES = [
     ("tiny_lm c4 W256", 4, 256, 8, 4, 32, False),
     ("small_lm c2 W64", 2, 64, 8, 8, 64, False),
     ("small_lm c2 W256", 2, 256, 8, 8, 64, False),
+    ("moonshot c2 W64", 2, 64, 16, 16, 128, False),
     ("sweep", 2, 256, 8, 2, 64, False),
     ("sweep ring", 3, 128, 4, 4, 32, True),
     ("sweep", 1, 512, 16, 2, 128, False),
@@ -91,10 +103,25 @@ MAMBA_CASES = [
     ("sweep", 1, 64, 128, 16),
     ("sweep", 2, 96, 32, 4),
 ]
+# (label, B, S, D, F): moonshot_v1_16b's expert GEMMs (64 experts, top-6) on
+# layouts routed from random router probabilities: a decode step with 2 slots
+# (B=2, S=1) and the 16/32-token prefill buckets, gate/up (D 2048 -> F 1408)
+# and down (1408 -> 2048)
+GMM_CASES = [
+    ("moonshot decode c2 wg/wi", 2, 1, 2048, 1408),
+    ("moonshot decode c2 wo", 2, 1, 1408, 2048),
+    ("moonshot S16 wg/wi", 1, 16, 2048, 1408),
+    ("moonshot S16 wo", 1, 16, 1408, 2048),
+    ("moonshot S32 wg/wi", 1, 32, 2048, 1408),
+    ("moonshot S32 wo", 1, 32, 1408, 2048),
+]
+# (T_pad, D, F, E, block_t): the JAX sweep (tests/test_kernels.py:86-89)
+GMM_SWEEP = [(512, 128, 256, 4, 64), (256, 64, 128, 8, 32)]
 # the shapes the kernels line reports: the engine's commonest calls
 FLASH_LINE = "tiny_lm S32"
 DECODE_LINE = "tiny_lm c4 W64"
 MAMBA_LINE = "falcon_mamba_7b S32"
+GMM_LINE = "moonshot decode c2 wg/wi"    # 2 of B4's 3 calls per layer of a decode step
 
 
 class SmokeError(RuntimeError):
@@ -243,13 +270,14 @@ def phase_kernels():
                 rows[("decode_attention", label, dname)] = _time_decode(
                     F, dec, q, kc, vc, pos, ring, dname, err)
     rows.update(_check_mamba(gen))
+    rows.update(_check_gmm(gen))
     print("[kernels] ms: CUDA events over back-to-back calls (host overhead "
           "included); device_ms: the profiler's kernel time per call")
     for (name, label, dname), r in rows.items():
         lib = "library_ms none (no PyTorch call computes it)"
         if r["library_ms"] is not None:
             lib = (f"library_ms {r['library_ms']:.4f} (device {_ms(r['library_device_ms'])}, "
-                   f"max_abs_err {r['library_err']:.1e})")
+                   f"max_abs_err {r['library_err']:.1e}, {r['library']})")
         print(f"[kernels] time {name} {label} {dname}: kernel_ms {r['ms']:.4f} "
               f"(device {_ms(r['device_ms'])}) plain_ms {r['plain_ms']:.4f} "
               f"(device {_ms(r['plain_device_ms'])}) {lib} "
@@ -312,7 +340,88 @@ def _time_mamba(ms, args, dname, err):
             "plain_ms": time_ms(plain, iters=plain_iters, warmup=2),
             "plain_device_ms": device_ms(plain, iters=plain_iters),
             "library_ms": None, "library_device_ms": None, "library_err": None,
+            "library": None,
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _check_gmm(gen):
+    import torch
+
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.models import moe as tmoe
+
+    rows = {}
+    E, k = 64, 6
+    for label, B, S, D, F in GMM_CASES:          # moonshot's routing at this shape
+        C = tmoe.capacity(S, k, E, 1.25)
+        gate, eidx = torch.softmax(torch.randn(B, S, E, generator=gen, device="cuda"),
+                                   -1).topk(k)
+        lay = tmoe.build_layout(eidx, gate / gate.sum(-1, keepdim=True), C,
+                                tmoe.block_rows(B, C), E)
+        kept = int((lay.row_token < B * S).sum())
+        what = (f"B{B} S{S} C{C} T_pad{lay.row_token.numel()} bt{lay.block_t} D{D} F{F} "
+                f"E{E}: {kept} of {B * S * k} assignments kept, "
+                f"{int(torch.unique(lay.block_to_expert).numel())} experts")
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            x = torch.cat([_inputs(gen, (B * S, D), dtype),
+                           torch.zeros(1, D, dtype=dtype, device="cuda")])[lay.row_token]
+            args = (x, _gmm_weights(gen, E, D, F, dtype), lay.block_to_expert, lay.block_t)
+            err = _gmm_compare(moe_gmm, label, what, args, dname)
+            if dname == "bfloat16":
+                rows[("grouped_matmul", label, dname)] = _time_gmm(moe_gmm, args, kept, err)
+    for T, D, F, E2, bt in GMM_SWEEP:            # random block_to_expert
+        bmap = torch.randint(0, E2, (T // bt,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            args = (_inputs(gen, (T, D), dtype), _gmm_weights(gen, E2, D, F, dtype), bmap, bt)
+            _gmm_compare(moe_gmm, "sweep", f"T{T} D{D} F{F} E{E2} bt{bt}", args, dname)
+    return rows
+
+
+def _gmm_weights(gen, E, D, F, dtype):
+    import torch
+    return (torch.randn(E, D, F, generator=gen, device="cuda") / D ** 0.5).to(dtype)
+
+
+def _gmm_compare(moe_gmm, label, what, args, dname):
+    import torch
+    out = moe_gmm.grouped_matmul(*args)
+    ref = moe_gmm.grouped_matmul_plain(*args)
+    torch.cuda.synchronize()
+    tol = TOL[dname]
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+    print(f"[kernels] grouped_matmul {label} {what} {dname}: max_abs_err {err:.3e} "
+          f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"grouped_matmul {label} {dname} disagrees with its plain version")
+    return err
+
+
+def _time_gmm(moe_gmm, args, kept, err):
+    import torch
+    x, w, bmap, bt = args
+    T, D = x.shape
+    E, _, F = w.shape
+    # each distinct expert's weights, x and bmap read once, y written once;
+    # 2*D*F operations for each row that holds an assignment
+    experts = int(torch.unique(bmap).numel())
+    nbytes = (experts * D * F + T * D + T * F) * x.element_size() + bmap.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 2.0 * kept * D * F, "bfloat16")
+    plain = lambda: moe_gmm.grouped_matmul_plain(*args)
+    if hasattr(torch, "_grouped_mm"):
+        # one group per expert: the run of blocks bmap gives it (bmap is sorted)
+        offs = (torch.cumsum(torch.bincount(bmap.long(), minlength=E), 0) * bt).to(torch.int32)
+        lib, lib_name = (lambda: torch._grouped_mm(x, w, offs=offs)), "torch._grouped_mm"
+    else:
+        lib = lambda: torch.bmm(x.view(-1, bt, D), w[bmap.long()]).view(T, F)
+        lib_name = "torch.bmm over w[block_to_expert], the gather included"
+    lib_err = (lib().float() - plain().float()).abs().max().item()
+    return _timings(lambda: moe_gmm.grouped_matmul(*args), plain, lib,
+                    f"T_pad{T} bt{bt} D{D} F{F} E{E}, {experts} experts", err, lib_err,
+                    b_ms, b_by, library=lib_name,
+                    plain_iters=20)        # the plain loop makes ~4 torch calls per block
 
 
 def _time_flash(F, fa, q, k, v, causal, window, dname, err):
@@ -341,10 +450,12 @@ def _time_flash(F, fa, q, k, v, causal, window, dname, err):
                     b_ms, b_by)
 
 
-def _timings(kern, plain, lib, shape, err, lib_err, b_ms, b_by):
-    return {"shape": shape, "max_abs_err": err,
+def _timings(kern, plain, lib, shape, err, lib_err, b_ms, b_by,
+             library="scaled_dot_product_attention", plain_iters=100):
+    return {"shape": shape, "max_abs_err": err, "library": library,
             "ms": time_ms(kern), "device_ms": device_ms(kern),
-            "plain_ms": time_ms(plain), "plain_device_ms": device_ms(plain),
+            "plain_ms": time_ms(plain, iters=plain_iters),
+            "plain_device_ms": device_ms(plain, iters=plain_iters // 2),
             "library_ms": time_ms(lib), "library_device_ms": device_ms(lib),
             "library_err": lib_err, "bound_ms": b_ms, "bound_by": b_by}
 
@@ -380,9 +491,6 @@ def phase_engine():
     from repro_torch.core.router import build_tree
     from repro_torch.core.simulator import summarize
     from repro_torch.core.types import FunctionConfig, Request
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.serving.engine import Engine
 
     store = ConfigStore()
@@ -392,9 +500,9 @@ def phase_engine():
     engine = Engine(build_tree(2, fanout=2), store, ImageRegistry(), max_len=64,
                     device="cuda")
     rng = np.random.default_rng(0)
-    fa.flash_attention.launches = 0
-    dec.decode_attention.launches = 0
-    ms.mamba_scan.launches = 0
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     reqs, results = [], []
     for _ in range(24):   # the mix of examples/emulate_workers.py
@@ -407,8 +515,8 @@ def phase_engine():
     results.extend(engine.run())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "decode_attention": dec.decode_attention.launches}
+    launches = {name: wrappers[name].launches for name in ("flash_attention",
+                                                          "decode_attention")}
 
     check(len(results) == 24 and all(r.ok for r in results),
           f"{sum(r.ok for r in results)}/{len(results)} of 24 requests ok")
@@ -438,8 +546,22 @@ def phase_engine():
     return launches
 
 
-def phase_engine_mamba():
-    """falcon_mamba_7b at full width and depth in bfloat16 through the Engine."""
+def _wrappers():
+    """Every kernel wrapper of the port, by name: each counts its launches."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import moe_gmm
+    return {"flash_attention": fa.flash_attention, "decode_attention": dec.decode_attention,
+            "mamba_scan": ms.mamba_scan, "grouped_matmul": moe_gmm.grouped_matmul}
+
+
+def _serve_image(arch, fn, tag, n_req=8):
+    """``n_req`` requests of one large image (c=2, ``max_len`` 64, 4 generated
+    tokens) through the Engine, prompt sizes and run points drawn as in
+    phase 4's mix. Every launch count is set to 0 just before and read just
+    after, and the model's prefill and decode_step calls are counted.
+    Returns (engine, instances, launches, calls)."""
     import numpy as np
     import torch
 
@@ -448,69 +570,81 @@ def phase_engine_mamba():
     from repro_torch.core.router import build_tree
     from repro_torch.core.simulator import summarize
     from repro_torch.core.types import FunctionConfig, Request
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.models import LM
     from repro_torch.serving.engine import Engine
 
-    n_req = 8
     store = ConfigStore()
-    store.put(FunctionConfig(name="ssm-gen", arch="falcon_mamba_7b", concurrency=2,
-                             gen_tokens=4, idle_timeout_s=60.0))
+    store.put(FunctionConfig(name=fn, arch=arch, concurrency=2, gen_tokens=4,
+                             idle_timeout_s=60.0))
     engine = Engine(build_tree(2, fanout=2), store, ImageRegistry(), max_len=64,
                     device="cuda")
     rng = np.random.default_rng(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
-    fa.flash_attention.launches = 0
-    dec.decode_attention.launches = 0
-    ms.mamba_scan.launches = 0
-    t0 = time.perf_counter()
-    reqs, results = [], []
-    for _ in range(n_req):   # prompt sizes and run points drawn as in phase 4's mix
-        req = Request(fn="ssm-gen", arrival_t=0.0, size=int(rng.integers(4, 24)))
-        reqs.append(req)
-        engine.submit(req)
-        if rng.random() < 0.4:
-            results.extend(engine.run())
-    results.extend(engine.run())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"mamba_scan": ms.mamba_scan.launches}
+    calls = {"prefill": 0, "decode_step": 0}
+    originals = {name: getattr(LM, name) for name in calls}
+
+    def counted(name):
+        def call(self, *a, **kw):
+            calls[name] += 1
+            return originals[name](self, *a, **kw)
+        return call
+
+    wrappers = _wrappers()
+    for name in calls:
+        setattr(LM, name, counted(name))
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        reqs, results = [], []
+        for _ in range(n_req):
+            req = Request(fn=fn, arrival_t=0.0, size=int(rng.integers(4, 24)))
+            reqs.append(req)
+            engine.submit(req)
+            if rng.random() < 0.4:
+                results.extend(engine.run())
+        results.extend(engine.run())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+    finally:
+        for name, f in originals.items():
+            setattr(LM, name, f)
     peak = torch.cuda.max_memory_allocated()
 
     check(len(results) == n_req and all(r.ok for r in results),
-          f"{sum(r.ok for r in results)}/{len(results)} of {n_req} falcon requests ok")
-    check({r.rid for r in results} == {r.rid for r in reqs}, "falcon request ids lost")
+          f"{sum(r.ok for r in results)}/{len(results)} of {n_req} {arch} requests ok")
+    check({r.rid for r in results} == {r.rid for r in reqs}, f"{arch} request ids lost")
     tel = engine.telemetry()
     check(len(tel) == n_req and all(len(t.features()) == 7 and t.latency > 0 for t in tel),
-          "falcon telemetry rows missing, short or without latency")
-    check(launches["mamba_scan"] > 0, "the engine never launched mamba_scan")
-    check(fa.flash_attention.launches == dec.decode_attention.launches == 0,
-          "an attention kernel ran in an attention-free model")
+          f"{arch} telemetry rows missing, short or without latency")
     insts = [i for w in engine.workers.values() for il in w.instances.values() for i in il]
     check(all(len(toks) == 5 for i in insts for toks in i.generated.values()),
-          "a falcon request did not generate its first token plus gen_tokens=4")
+          f"a {arch} request did not generate its first token plus gen_tokens=4")
     tokens = sum(len(toks) for i in insts for toks in i.generated.values())
     s = summarize(results)
-    cfg = get_config("falcon_mamba_7b")
-    print(f"[engine-ssm] falcon_mamba_7b {cfg.dtype}, {cfg.num_layers} layers: "
-          f"{s['ok']}/{s['n']} ok in {wall:.3f} s: p50 {s['p50'] * 1e3:.1f} ms "
-          f"p99 {s['p99'] * 1e3:.1f} ms cold_rate {s['cold_rate']:.2f} (prompt sizes {[r.size for r in reqs]})")
+    cfg = get_config(arch)
+    print(f"[{tag}] {arch} {cfg.dtype}, {cfg.num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.2f} B parameters: {s['ok']}/{s['n']} ok in {wall:.3f} s: "
+          f"p50 {s['p50'] * 1e3:.1f} ms p99 {s['p99'] * 1e3:.1f} ms cold_rate "
+          f"{s['cold_rate']:.2f} (prompt sizes {[r.size for r in reqs]})")
     for i in insts:
-        print(f"[engine-ssm] instance {i.iid} cold start {i.cold_start_s:.3f} s = "
+        print(f"[{tag}] instance {i.iid} cold start {i.cold_start_s:.3f} s = "
               f"materialization {i.materialize_s:.3f} s + warm-up {i.warmup_s:.3f} s "
               f"+ rest {i.cold_start_s - i.materialize_s - i.warmup_s:.3f} s")
-    print(f"[engine-ssm] generated {tokens} tokens, {tokens / wall:.1f} tokens/s end to end")
-    print(f"[engine-ssm] device memory: max_memory_allocated {peak / 2**30:.2f} GiB "
+    print(f"[{tag}] generated {tokens} tokens, {tokens / wall:.1f} tokens/s end to end")
+    print(f"[{tag}] device memory: max_memory_allocated {peak / 2**30:.2f} GiB "
           f"(allocated before the phase {mem0 / 2**30:.2f} GiB)")
-    print(f"[engine-ssm] kernel launches: {launches} (per request "
-          f"{launches['mamba_scan'] / n_req:.2f}; one per layer per prefill, warm-up "
-          f"prefill included)")
-    # one model call of each kind on the image's weights, after the counts
-    # were read: host wall per call (CUDA events) against device time
-    inst = insts[0]
+    print(f"[{tag}] model calls {calls}; kernel launches {launches}")
+    return engine, insts, launches, calls
+
+
+def _time_model_calls(inst, tag):
+    """One model call of each kind on the image's weights, after the counts
+    were read: host wall per call (CUDA events) against device time."""
+    import torch
     tok = torch.zeros(inst.slots, dtype=torch.int32, device="cuda")
     step = lambda: inst.model.decode_step(inst.kv.cache, {"token": tok,
                                                           "pos": inst.kv.positions()})
@@ -518,12 +652,59 @@ def phase_engine_mamba():
     prefill = lambda: inst.model.prefill({"tokens": prompt})
     for name, fn in ((f"decode step ({inst.slots} slots)", step), ("prefill S32", prefill)):
         wall_ms, dev_ms = time_ms(fn, iters=10, warmup=2), device_ms(fn, iters=5)
-        print(f"[engine-ssm] {name}: {wall_ms:.2f} ms per call, device {_ms(dev_ms)} ms "
+        print(f"[{tag}] {name}: {wall_ms:.2f} ms per call, device {_ms(dev_ms)} ms "
               f"(busy {dev_ms / wall_ms:.1%})" if dev_ms else
-              f"[engine-ssm] {name}: {wall_ms:.2f} ms per call, device not measured")
+              f"[{tag}] {name}: {wall_ms:.2f} ms per call, device not measured")
+
+
+def phase_engine_mamba():
+    """falcon_mamba_7b at full width and depth in bfloat16 through the Engine."""
+    from repro_torch.core.types import Request
+
+    engine, insts, launches, _ = _serve_image("falcon_mamba_7b", "ssm-gen", "engine-ssm")
+    check(launches["mamba_scan"] > 0, "the engine never launched mamba_scan")
+    check(launches["flash_attention"] == launches["decode_attention"]
+          == launches["grouped_matmul"] == 0,
+          "an attention or MoE kernel ran in falcon_mamba_7b (attention-free, no MoE)")
+    print(f"[engine-ssm] mamba_scan launches per request {launches['mamba_scan'] / 8:.2f}; "
+          f"one per layer per prefill, warm-up prefill included")
+    _time_model_calls(insts[0], "engine-ssm")
     _profile_engine(engine, Request, "ssm-gen", "falcon_mamba_7b", (4, 9, 14, 19),
                     ("mamba_scan_kernel",))
-    return launches
+    return {"mamba_scan": launches["mamba_scan"]}
+
+
+def phase_engine_moe():
+    """moonshot_v1_16b at full width and depth in bfloat16 through the Engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import Request
+
+    engine, insts, launches, calls = _serve_image("moonshot_v1_16b", "moe-gen", "engine-moe")
+    layers = get_config("moonshot_v1_16b").num_layers
+    want = 3 * layers * (calls["prefill"] + calls["decode_step"])
+    print(f"[engine-moe] grouped_matmul launches {launches['grouped_matmul']} = 3 x {layers} "
+          f"layers x ({calls['prefill']} prefill + {calls['decode_step']} decode_step calls, "
+          f"warm-up included) = {want}")
+    check(launches["grouped_matmul"] == want,
+          f"grouped_matmul launched {launches['grouped_matmul']} times, not {want}")
+    check(launches["flash_attention"] > 0 and launches["decode_attention"] > 0,
+          "the engine never launched an attention kernel on moonshot_v1_16b")
+    check(launches["mamba_scan"] == 0, "mamba_scan ran in a model without Mamba layers")
+    _time_model_calls(insts[0], "engine-moe")
+    _profile_engine(engine, Request, "moe-gen", "moonshot_v1_16b", (4, 9, 14, 19),
+                    ("gmm_kernel", "flash_fwd_kernel", "decode_partial_kernel",
+                     "decode_combine_kernel"))
+    return {"grouped_matmul": launches["grouped_matmul"]}
+
+
+def release_images():
+    """Empty the image cache, so that the card holds one large image at a time."""
+    import torch
+
+    from repro_torch.serving import engine
+    engine._IMAGE_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _profile_engine(engine, Request, fn, arch, sizes, port_kernels):
@@ -561,20 +742,23 @@ def phase_parity():
     _parity(replace(get_config("tiny_lm"), dtype="float32"), "tiny_lm")
     _parity(replace(get_config("falcon_mamba_7b"), dtype="float32", num_layers=2),
             "falcon_mamba_7b (2 layers, full width)")
+    _parity(replace(get_config("moonshot_v1_16b"), dtype="float32", num_layers=2),
+            "moonshot_v1_16b (2 layers, full width)")
 
 
 def _parity(cfg, label, B=2, S0=16, W=32, steps=4):
     """The f32 model on the card (kernels) against the same weights on the CPU
     (plain versions): logits and greedy tokens at every step, then every
     cache tensor (k/v, or the conv window and the SSM state)."""
+    import copy
+
     import numpy as np
     import torch
 
     from repro_torch.models import LM
 
     gpu = LM(cfg, device="cuda", seed=11)
-    cpu = LM(cfg, device="cpu")          # the CPU's draws differ from the card's
-    cpu.load_state_dict(gpu.state_dict())
+    cpu = copy.deepcopy(gpu).to("cpu")  # the card's weights: the CPU would draw others
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S0)).astype(np.int32)
     caches, logits = {}, {}
     for name, lm in (("gpu", gpu), ("cpu", cpu)):
@@ -621,20 +805,37 @@ def main() -> int:
     import repro_torch.kernels.build  # noqa: F401  (fails outside a checkout)
 
     t0 = time.perf_counter()
-    smi = phase_environment()
-    phase_build()
-    rows = phase_kernels()
-    launches = phase_engine()
-    launches.update(phase_engine_mamba())
-    phase_parity()
+    took = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        took[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    smi = timed("environment", phase_environment)
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels)
+    launches = timed("engine tiny/small", phase_engine)
+    launches.update(timed("engine falcon_mamba_7b", phase_engine_mamba))
+    release_images()
+    launches.update(timed("engine moonshot_v1_16b", phase_engine_moe))
+    release_images()
+    timed("parity", phase_parity)
 
     kernels = []
-    for name, label, replaces, source in (
-            ("flash_attention", FLASH_LINE, "src/repro/kernels/flash_attention.py:103",
+    for name, label, dname, replaces, source in (
+            ("flash_attention", FLASH_LINE, "bfloat16",
+             "src/repro/kernels/flash_attention.py:103",
              "src/repro_torch/csrc/flash_attention.cu"),
-            ("decode_attention", DECODE_LINE, "src/repro/kernels/decode_attention.py:84",
-             "src/repro_torch/csrc/decode_attention.cu")):
-        r = rows[(name, label, "bfloat16")]
+            ("decode_attention", DECODE_LINE, "bfloat16",
+             "src/repro/kernels/decode_attention.py:84",
+             "src/repro_torch/csrc/decode_attention.cu"),
+            ("mamba_scan", MAMBA_LINE, "float32", "src/repro/kernels/mamba_scan.py:68",
+             "src/repro_torch/csrc/mamba_scan.cu"),
+            ("grouped_matmul", GMM_LINE, "bfloat16", "src/repro/kernels/moe_gmm.py:71",
+             "src/repro_torch/csrc/moe_gmm.cu")):
+        r = rows[(name, label, dname)]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -642,18 +843,9 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "device_ms": r["device_ms"], "plain_device_ms": r["plain_device_ms"],
                         "library_device_ms": r["library_device_ms"],
-                        "shape": f"{label}: {r['shape']}", "dtype": "bfloat16"})
-    r = rows[("mamba_scan", MAMBA_LINE, "float32")]
-    kernels.append({"name": "mamba_scan", "route": "cuda",
-                    "source": "src/repro_torch/csrc/mamba_scan.cu",
-                    "replaces": "src/repro/kernels/mamba_scan.py:68",
-                    "launches": launches["mamba_scan"], "max_abs_err": r["max_abs_err"],
-                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": None,
-                    "device_ms": r["device_ms"], "plain_device_ms": r["plain_device_ms"],
-                    "library_device_ms": None,
-                    "shape": f"{MAMBA_LINE}: {r['shape']}", "dtype": "float32"})
-    print(f"[done] {time.perf_counter() - t0:.1f} s")
+                        "library": r["library"],
+                        "shape": f"{label}: {r['shape']}", "dtype": dname})
+    print(f"[done] {time.perf_counter() - t0:.1f} s; by phase (s): {took}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

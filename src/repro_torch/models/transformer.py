@@ -12,13 +12,17 @@ Modes:
   updates in place (the JAX function returns a new cache; the port writes
   one row per layer instead of copying the cache each step)
 
-Attention slots with a dense MLP and Mamba slots are ported; MoE slots and
-the audio/vision frontends raise ``NotImplementedError``.
+Attention and Mamba slots, each with a dense MLP or an MoE layer after it,
+are ported; the audio/vision frontends raise ``NotImplementedError``.
 
 Parameters are allocated on the target device in the model's dtype and drawn
-there, one period slice at a time, from a generator on that device: a 7B
+there, one period slice at a time, from a generator on that device: a 28B
 model is never staged in host memory, and its weights depend on the seed and
-the device type.
+the device type. The transient peak of the draws is two float32 copies (the
+draw and its scaled copy) of the largest tensor drawn at once: for
+``moonshot_v1_16b`` the embedding ``[163840, 2048]``, 1.34 GB each, on top
+of the 51.6 GiB of bf16 parameters (an expert stack's period slice,
+``[64, 2048, 1408]``, is 738 MB).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from repro_torch.configs.base import BLOCK_ATTN, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import ParamSpec, init_param, mlp, rms_norm, sinusoidal_pos
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -95,11 +100,9 @@ class LM(nn.Module):
         self.slot_kinds: List[SlotKind] = []
         for s in range(self.period):
             kind = cfg.block_kind(s)
-            if cfg.is_moe_layer(s):
-                raise NotImplementedError(f"{cfg.name}: MoE slots are not ported yet")
             local = cfg.is_local_attn(s)
             theta = 10000.0 if cfg.sliding_window and local else cfg.rope_theta
-            self.slot_kinds.append(SlotKind(kind, False, local, theta))
+            self.slot_kinds.append(SlotKind(kind, cfg.is_moe_layer(s), local, theta))
 
         specs = self.param_specs()
         self.embed = _param(specs["embed"], dev, dtype)
@@ -163,7 +166,13 @@ class LM(nn.Module):
                 ps["D"] = ParamSpec((K, DI), init="ones")
                 ps["out_proj"] = ParamSpec((K, DI, D))
             ps["norm2"] = ParamSpec((K, D), init="zeros")
-            if c.d_ff > 0:
+            if sk.is_moe:
+                E, F = c.moe.num_experts, c.moe.expert_ff
+                ps["router"] = ParamSpec((K, D, E))
+                ps["moe_wi"] = ParamSpec((K, E, D, F))
+                ps["moe_wg"] = ParamSpec((K, E, D, F))
+                ps["moe_wo"] = ParamSpec((K, E, F, D))
+            elif c.d_ff > 0:
                 ps["wi"] = ParamSpec((K, D, c.d_ff))
                 if c.gated_mlp:
                     ps["wg"] = ParamSpec((K, D, c.d_ff))
@@ -208,6 +217,10 @@ class LM(nn.Module):
         return mlp(h, {"wi": p["wi"], "wg": p.get("wg"), "wo": p["wo_mlp"]},
                    self.cfg.gated_mlp)
 
+    def _moe(self, h, p):
+        return moe_mod.moe_forward(h, {"router": p["router"], "wi": p["moe_wi"],
+                                       "wg": p["moe_wg"], "wo": p["moe_wo"]}, self.cfg)
+
     def _block_seq(self, x, p, sk: SlotKind, positions):
         c = self.cfg
         h = rms_norm(x, p["norm1"], c.norm_eps)
@@ -217,7 +230,9 @@ class LM(nn.Module):
         else:
             h, cache = mamba_mod.mamba_forward(h, p, c)
         x = x + h
-        if c.d_ff > 0:
+        if sk.is_moe:
+            x = x + self._moe(rms_norm(x, p["norm2"], c.norm_eps), p)
+        elif c.d_ff > 0:
             x = x + self._mlp(rms_norm(x, p["norm2"], c.norm_eps), p)
         return x, cache
 
@@ -230,7 +245,9 @@ class LM(nn.Module):
         else:
             h, cache = mamba_mod.mamba_decode(h, p, c, cache)
         x = x + h
-        if c.d_ff > 0:
+        if sk.is_moe:
+            x = x + self._moe(rms_norm(x, p["norm2"], c.norm_eps), p)
+        elif c.d_ff > 0:
             x = x + self._mlp(rms_norm(x, p["norm2"], c.norm_eps)[:, None], p)[:, 0]
         return x, cache
 

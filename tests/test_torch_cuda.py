@@ -180,3 +180,120 @@ def test_engine_on_the_card_serves_falcon_mamba_through_b3(card, monkeypatch):
     assert ms.mamba_scan.launches >= 2 * 4      # a launch per layer per prefill
     insts = [i for w in engine.workers.values() for i in w.instances.get("ssm", [])]
     assert all(len(t) == 5 for i in insts for t in i.generated.values())
+
+
+def _routed_layout(card, gen, B, S, E=64, k=6, cf=1.25):
+    """moonshot_v1_16b's dispatch (64 experts, top-6) from a random routing."""
+    from repro_torch.models import moe as tmoe
+    gate, eidx = torch.softmax(torch.randn(B, S, E, generator=gen, device=card), -1).topk(k)
+    C = tmoe.capacity(S, k, E, cf)
+    return tmoe.build_layout(eidx, gate / gate.sum(-1, keepdim=True), C,
+                             tmoe.block_rows(B, C), E)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D,F", [
+    (2, 1, 2048, 1408),                # decode with 2 slots: wg/wi, then wo
+    (2, 1, 1408, 2048),
+    (1, 32, 2048, 1408),               # the S32 prefill bucket
+    (1, 16, 1408, 2048),
+])
+def test_grouped_matmul_kernel_matches_plain_on_routed_layouts(card, B, S, D, F, dtype):
+    from repro_torch.kernels import moe_gmm
+    gen = torch.Generator(device=card).manual_seed(S + D)
+    lay = _routed_layout(card, gen, B, S)
+    x = torch.cat([_randn(gen, (B * S, D), dtype, card),
+                   torch.zeros(1, D, dtype=dtype, device=card)])[lay.row_token]
+    w = (torch.randn(2, 64, D, F, generator=gen, device=card) / D ** 0.5).to(dtype)
+    n = moe_gmm.grouped_matmul.launches
+    out = moe_gmm.grouped_matmul(x, w[1], lay.block_to_expert, lay.block_t)   # a period slice
+    torch.cuda.synchronize()
+    assert moe_gmm.grouped_matmul.launches == n + 1
+    ref = moe_gmm.grouped_matmul_plain(x, w[1], lay.block_to_expert, lay.block_t)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    pad = lay.row_token == B * S
+    assert out[pad].abs().max() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,D,F,E,bt", [
+    (512, 128, 256, 4, 64),            # the JAX sweep (tests/test_kernels.py:86-89)
+    (256, 64, 128, 8, 32),
+    (256, 128, 128, 4, 128),
+    (96, 64, 192, 3, 16),
+    (64, 64, 64, 2, 8),
+])
+def test_grouped_matmul_kernel_matches_plain_on_sweeps(card, T, D, F, E, bt, dtype):
+    from repro_torch.kernels import moe_gmm
+    gen = torch.Generator(device=card).manual_seed(T + bt)
+    x = _randn(gen, (T, 2 * D), dtype, card)[:, D:]          # rows through a stride
+    w = _randn(gen, (E, D, F), dtype, card)
+    bmap = torch.randint(0, E, (T // bt,), generator=gen, device=card, dtype=torch.int32)
+    out = moe_gmm.grouped_matmul(x, w, bmap, bt)
+    ref = moe_gmm.grouped_matmul_plain(x, w, bmap, bt)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_grouped_matmul_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels import moe_gmm
+    x = torch.zeros(32, 64, device=card)
+    w = torch.zeros(2, 64, 128, device=card)
+    bmap = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        moe_gmm.grouped_matmul(x.half(), w.half(), bmap, 8)
+    with pytest.raises(TypeError, match="int32"):
+        moe_gmm.grouped_matmul(x, w, bmap.long(), 8)
+    with pytest.raises(ValueError, match="block_t"):
+        moe_gmm.grouped_matmul(x, w, bmap, 24)
+    with pytest.raises(ValueError, match="multiple of block_t"):
+        moe_gmm.grouped_matmul(x[:28], w, bmap, 8)
+    with pytest.raises(ValueError, match="block_to_expert"):
+        moe_gmm.grouped_matmul(x, w, bmap[:3], 8)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        moe_gmm.grouped_matmul(x[:, :48], w[:, :48], bmap, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gmm.grouped_matmul(x, torch.zeros(2, 128, 64, device=card).transpose(1, 2), bmap, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        moe_gmm.grouped_matmul(torch.zeros(32, 66, device=card)[:, 2:], w, bmap, 8)
+
+
+def test_engine_on_the_card_serves_moonshot_through_b4(card, monkeypatch):
+    """moonshot_v1_16b at full width, depth cut to 2 layers under its own name:
+    B4 three times per layer per model call, B1 in prefill, B2 in decode."""
+    from dataclasses import replace
+
+    from repro_torch.configs import base as port_configs
+    from repro_torch.core.config_store import ConfigStore, ImageRegistry
+    from repro_torch.core.router import build_tree
+    from repro_torch.core.types import FunctionConfig, Request
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.models import LM
+    from repro_torch.serving.engine import Engine
+
+    cfg = replace(port_configs.get_config("moonshot_v1_16b"), name="moonshot_v1_16b_l2",
+                  num_layers=2)
+    monkeypatch.setitem(port_configs._REGISTRY, cfg.name, cfg)
+    calls = {"prefill": 0, "decode_step": 0}
+    for name in calls:
+        def counted(self, *a, _f=getattr(LM, name), _n=name):
+            calls[_n] += 1
+            return _f(self, *a)
+        monkeypatch.setattr(LM, name, counted)
+    store = ConfigStore()
+    store.put(FunctionConfig(name="moe", arch=cfg.name, concurrency=2, gen_tokens=4))
+    engine = Engine(build_tree(2, fanout=2), store, ImageRegistry(), max_len=64)
+    moe_gmm.grouped_matmul.launches = fa.flash_attention.launches = 0
+    dec.decode_attention.launches = ms.mamba_scan.launches = 0
+    for size in (4, 9, 17, 23):
+        engine.submit(Request(fn="moe", arrival_t=0.0, size=size))
+    res = engine.run()
+    assert len(res) == 4 and all(r.ok for r in res)
+    assert moe_gmm.grouped_matmul.launches == 3 * 2 * (calls["prefill"] + calls["decode_step"])
+    assert fa.flash_attention.launches > 0 and dec.decode_attention.launches > 0
+    assert ms.mamba_scan.launches == 0
+    insts = [i for w in engine.workers.values() for i in w.instances.get("moe", [])]
+    assert all(len(t) == 5 for i in insts for t in i.generated.values())

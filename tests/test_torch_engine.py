@@ -160,6 +160,14 @@ def f32_falcon(monkeypatch):
         dtype="float32"))
 
 
+@pytest.fixture
+def f32_moonshot(monkeypatch):
+    """A reduced moonshot_v1_16b in f32 under its own name, in both registries."""
+    return _register_both(monkeypatch, replace(
+        reduced(jax_configs.get_config("moonshot_v1_16b")), name="moonshot_f32",
+        dtype="float32"))
+
+
 def test_worker_tokens_match_the_jax_worker(f32_tiny, monkeypatch):
     """The port's Worker, with its image seeded from the JAX instance's bridged
     f32 weights, generates the JAX Worker's tokens for the same requests."""
@@ -171,6 +179,13 @@ def test_falcon_mamba_worker_tokens_match_the_jax_worker(f32_falcon, monkeypatch
     (ssm in float32), and the prompt's pad tokens run through the scan into
     the state handed to decode, as in the JAX engine."""
     _worker_parity(f32_falcon, monkeypatch)
+
+
+def test_moonshot_worker_tokens_match_the_jax_worker(f32_moonshot, monkeypatch):
+    """The same for MoE slots: the prompts of 8/20/5/13 tokens pad to 16/32,
+    so the pad tokens route and compete for the experts' capacity, as in the
+    JAX engine."""
+    _worker_parity(f32_moonshot, monkeypatch)
 
 
 def _worker_parity(arch, monkeypatch):

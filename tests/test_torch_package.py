@@ -151,3 +151,36 @@ def test_serve_cli_takes_falcon_mamba_on_the_cpu(monkeypatch, capsys):
     serve.main(["--fn-arch", "falcon_mamba_7b", "--requests", "3", "--gen-tokens", "2",
                 "--device", "cpu"])
     assert "ok=3/3" in capsys.readouterr().out
+
+
+def test_grouped_matmul_wrapper_refuses_non_cuda_tensors():
+    from repro_torch.kernels import moe_gmm, ops
+
+    x, w = torch.zeros(16, 64), torch.zeros(2, 64, 64)
+    bmap = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        moe_gmm.grouped_matmul(x, w, bmap, 8)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        ops.grouped_matmul(x.to("meta"), w.to("meta"), bmap.to("meta"), 8)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        ops.moe_expert_ffn(x.to("meta"), w.to("meta"), w.to("meta"), w.to("meta"),
+                           bmap.to("meta"), 8)
+    assert moe_gmm.grouped_matmul.launches == 0
+
+
+def test_serve_cli_takes_moonshot_on_the_cpu(monkeypatch, capsys):
+    """``--fn-arch moonshot_v1_16b`` needs no other flag; the registered
+    config is cut here to keep the CPU run short."""
+    from dataclasses import replace
+
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+
+    cfg = base.get_config("moonshot_v1_16b")
+    assert (cfg.num_layers, cfg.d_model, cfg.moe.num_experts, cfg.moe.top_k,
+            cfg.moe.expert_ff, cfg.vocab_size) == (48, 2048, 64, 6, 1408, 163840)
+    monkeypatch.setitem(base._REGISTRY, "moonshot_v1_16b",
+                        replace(base.reduced(cfg), name="moonshot_v1_16b"))
+    serve.main(["--fn-arch", "moonshot_v1_16b", "--requests", "3", "--gen-tokens", "2",
+                "--device", "cpu"])
+    assert "ok=3/3" in capsys.readouterr().out
