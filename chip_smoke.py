@@ -12,7 +12,8 @@ imports nothing of JAX. Phases, each of which fails the run:
 3. kernels against their plain PyTorch versions on the card, at the serving
    shapes and at the JAX package's sweep shapes: attention (B1, B2) and the
    grouped matmul (B4, on layouts routed as moonshot_v1_16b routes) in
-   float32 (TF32 off) within 2e-4 and bfloat16 within 2e-2, the selective
+   float32 (TF32 off, the FMA route) within 2e-4 and bfloat16 (the
+   tensor-core route) within 2e-2, each line naming its route, the selective
    scan (B3) within 2e-3 and 5e-2, its output and its final state; times of
    kernel, plain version, bound and one library call where there is one
    (``scaled_dot_product_attention`` for attention, ``torch._grouped_mm``
@@ -74,6 +75,10 @@ FLASH_CASES = [
     ("small_lm S256", 1, 256, 8, 8, 64, True, 0),
     ("moonshot S16", 1, 16, 16, 16, 128, True, 0),
     ("moonshot S32", 1, 32, 16, 16, 128, True, 0),
+    # moonshot's S64 and S256 buckets (hd 128): the bf16 route timed where a
+    # head's q rows fill four 16-row tiles and more
+    ("moonshot S64", 1, 64, 16, 16, 128, True, 0),
+    ("moonshot S256", 1, 256, 16, 16, 128, True, 0),
     ("sweep", 2, 256, 4, 2, 64, True, 0),
     ("sweep bidir", 1, 256, 4, 4, 128, False, 0),
     ("sweep window", 2, 512, 8, 2, 64, True, 100),
@@ -114,9 +119,15 @@ GMM_CASES = [
     ("moonshot S16 wo", 1, 16, 1408, 2048),
     ("moonshot S32 wg/wi", 1, 32, 2048, 1408),
     ("moonshot S32 wo", 1, 32, 1408, 2048),
+    # the S64 prefill bucket: 384 assignments, the most that still take 8-row blocks
+    ("moonshot S64 wg/wi", 1, 64, 2048, 1408),
+    ("moonshot S64 wo", 1, 64, 1408, 2048),
 ]
-# (T_pad, D, F, E, block_t): the JAX sweep (tests/test_kernels.py:86-89)
-GMM_SWEEP = [(512, 128, 256, 4, 64), (256, 64, 128, 8, 32)]
+# (T_pad, D, F, E, block_t): the JAX sweep (tests/test_kernels.py:86-89), then
+# the block_t the routed cases do not reach, so that every instantiation of
+# both routes is held against the plain version
+GMM_SWEEP = [(512, 128, 256, 4, 64), (256, 64, 128, 8, 32),
+             (256, 128, 128, 4, 128), (96, 64, 192, 3, 16)]
 # the shapes the kernels line reports: the engine's commonest calls
 FLASH_LINE = "tiny_lm S32"
 DECODE_LINE = "tiny_lm c4 W64"
@@ -241,8 +252,8 @@ def phase_kernels():
             err = (out.float() - ref.float()).abs().max().item()
             ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
             print(f"[kernels] flash_attention {label} B{B} S{S} H{H} KV{KV} hd{hd} "
-                  f"causal={causal} window={window} {dname}: max_abs_err {err:.3e} "
-                  f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+                  f"causal={causal} window={window} {dname} [{fa.ROUTES[dtype]}]: "
+                  f"max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
             check(ok, f"flash_attention {label} {dname} disagrees with its plain version")
             if not label.startswith("sweep"):
                 rows[("flash_attention", label, dname)] = _time_flash(
@@ -393,8 +404,8 @@ def _gmm_compare(moe_gmm, label, what, args, dname):
     tol = TOL[dname]
     err = (out.float() - ref.float()).abs().max().item()
     ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
-    print(f"[kernels] grouped_matmul {label} {what} {dname}: max_abs_err {err:.3e} "
-          f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    print(f"[kernels] grouped_matmul {label} {what} {dname} [{moe_gmm.ROUTES[args[0].dtype]}]: "
+          f"max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
     check(ok, f"grouped_matmul {label} {dname} disagrees with its plain version")
     return err
 
@@ -542,7 +553,7 @@ def phase_engine():
           f"(per request: {launches['flash_attention'] / 24:.2f} flash, "
           f"{launches['decode_attention'] / 24:.2f} decode)")
     _profile_engine(engine, Request, "tiny-gen", "tiny_lm", (4, 9, 14, 19, 23, 6, 11, 17),
-                    ("flash_fwd_kernel", "decode_partial_kernel", "decode_combine_kernel"))
+                    ("flash_fwd_tc_kernel", "decode_partial_kernel", "decode_combine_kernel"))
     return launches
 
 
@@ -692,7 +703,7 @@ def phase_engine_moe():
     check(launches["mamba_scan"] == 0, "mamba_scan ran in a model without Mamba layers")
     _time_model_calls(insts[0], "engine-moe")
     _profile_engine(engine, Request, "moe-gen", "moonshot_v1_16b", (4, 9, 14, 19),
-                    ("gmm_kernel", "flash_fwd_kernel", "decode_partial_kernel",
+                    ("gmm_tc_kernel", "flash_fwd_tc_kernel", "decode_partial_kernel",
                      "decode_combine_kernel"))
     return {"grouped_matmul": launches["grouped_matmul"]}
 

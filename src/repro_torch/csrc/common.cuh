@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels (built for sm_90a, see
 // repro_torch/kernels/build.py). Every kernel takes float32 or bfloat16
-// tensors, computes in float32 and writes the input's type.
+// tensors, computes in float32 and writes the input's type. B1 and B4 take
+// bfloat16 through the tensor cores (mma.sync, float32 sums), fed by cp.async.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,6 +25,60 @@ template <> __device__ __forceinline__ float from_float<float>(float x) { return
 // round to nearest even, as torch's .to(torch.bfloat16)
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// --- the bf16 tensor-core routes (B1, B4): cp.async, ldmatrix, mma.sync ---
+
+// 16 bytes from device to shared memory, asynchronously (cp.async.cg: cached
+// in L2 only). With full = false nothing is read and the 16 bytes are zeroed;
+// gmem must still be a valid address.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full = true) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ldmatrix: lane i gives the address of row i % 8 of 8x8 matrix i / 8 (16
+// bytes each); register j of every lane receives its share of matrix j in the
+// layout of an mma.sync fragment (.trans: of the transposed matrix).
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(s) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
+}
+
+// c[16x8] += a[16x16] b[16x8]: bf16 operands, float32 sums, one warp. Lane
+// (g = lane / 4, t = lane % 4) holds a = rows g, g+8 x cols 2t, 2t+1, 2t+8,
+// 2t+9; b = rows 2t, 2t+1, 2t+8, 2t+9 x col g; c = rows g, g+8 x cols 2t, 2t+1.
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two floats as bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace rt

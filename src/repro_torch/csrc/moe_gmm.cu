@@ -9,30 +9,42 @@
 // is (row block, F block, D block) with the D axis sequential, the sum carried
 // in VMEM scratch, and block_to_expert scalar-prefetched so that the weight
 // BlockSpec's index map picks the expert's tile. Here one block owns a (row
-// block, F tile) pair, loads its own expert id from block_to_expert, and
-// loops over D itself; nothing is carried between blocks.
-//
-// Tiles: BT rows (8..128, the layout's block_t) by BN = 64 columns, D in
-// steps of BK = 64 (32 at BT = 128, to stay in 48 KB of static shared
-// memory). Each step stages the x tile and the w[e] tile in shared memory as
-// float32; 16 threads span the 64 columns (4 each, one float4 of the w tile
-// per k) and min(BT, 16) thread rows span the BT rows, so a thread keeps a
-// (BT/16 or 1) x 4 micro-tile of sums in registers and accumulates with
-// float32 FMA (no TF32, no tensor cores: f32 within 2e-4 of the plain
-// version). The next step's tiles are loaded from device memory into
-// registers (16-byte loads) while the current step computes. Nothing is
-// masked: the wrapper checks T_pad % BT == 0, D % 64 == 0 and F % 64 == 0.
+// block, 64-column F tile) pair, loads its own expert id from block_to_expert,
+// and loops over D itself; nothing is carried between blocks.
 //
 // Bound: at the serving shapes (moonshot_v1_16b, D 2048 / F 1408 and back,
 // a few rows per expert) the kernel is bound by the bytes of the experts'
-// weights, each distinct expert's D*F read once: 69 MB (12 experts, 0.021 ms
+// weights, each distinct expert's D*F read once: ~64 MB (11 experts, 0.019 ms
 // at 3.35 TB/s) for a decode step with 2 slots and ~352 MB (~61 of 64
 // experts, 0.105 ms) for a prefill of 32 tokens, against 2*rows*D*F
-// operations far below the bf16 ridge. The design keeps every weight byte
-// read once per F tile per row block: a block of rows of one expert reads
-// its expert's tile once, and the layout keeps each expert's rows in as few
-// BT-row blocks as possible. Blocks past the layout's last used one repeat
-// that block's expert over zero rows; their weight reads hit L2.
+// operations far below the bf16 ridge. So what matters is the weight bytes in
+// flight per SM, not the multiply. Every weight byte is read once per row
+// block: a block of rows of one expert reads its expert's tile once, and the
+// layout keeps each expert's rows in as few BT-row blocks as it can. Blocks
+// past the layout's last used one repeat that block's expert over zero rows;
+// their weight reads hit L2.
+//
+// bfloat16 (the serving path): tensor cores, with A and B swapped so that the
+// weights are the M side, y^T[F tile, rows] = w[e][:, F tile]^T x[rows]^T.
+// The 64-column F tile is M = 64 (four warps, 16 columns each) and the BT rows
+// are N (BT/8 n8 tiles of mma.sync.m16n8k16), so an 8-row decode block fills
+// its tiles without padding. w is F-contiguous, so its fragments come from
+// shared memory by ldmatrix.trans; x's by plain ldmatrix. (64 D x 64 F)
+// weight tiles and the matching (BT x 64 D) x tiles stream through a ring of
+// 4 stages filled by 16-byte cp.async.cg, 3 steps in flight while one
+// computes: at decode (308 blocks of 41 KB, all resident, ~2.3 per SM) ~55 KB
+// of weights in flight per SM. Shared rows are padded by 16 bytes so that the
+// 8 rows of an ldmatrix hit distinct banks.
+//
+// float32: kept for exactness (float32 FMA, no TF32, within 2e-4 of the plain
+// version); not on the serving path. BT rows by 64 columns, D in steps of
+// BK = 64 (32 at BT = 128, to stay in 48 KB of static shared memory); both
+// tiles staged in shared memory, 16 threads span the 64 columns (a float4 of
+// the w tile per k) and min(BT, 16) thread rows the BT rows; the next step's
+// tiles are loaded into registers while the current step computes.
+//
+// Nothing is masked: the wrapper checks T_pad % BT == 0, D % 64 == 0,
+// F % 64 == 0 and 16-byte alignment of x's rows and w's rows.
 #include "common.cuh"
 
 namespace {
@@ -46,19 +58,10 @@ template <int BT> struct Tile {
   static constexpr int BK = BT > 64 ? 32 : 64;
 };
 
-// 16 bytes of T as float32
+// 16 bytes of float32
 __device__ __forceinline__ void unpack(const uint4& u, float* out, float) {
   const float4 f = *reinterpret_cast<const float4*>(&u);
   out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* out, __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    out[2 * j] = f.x;
-    out[2 * j + 1] = f.y;
-  }
 }
 
 template <typename T, int BT>
@@ -184,6 +187,141 @@ int dispatch_bt(int bt, const void* x, const void* w, const int* bmap, void* y, 
   }
 }
 
+
+// ---- bfloat16: tensor cores, weights as the M side ----
+
+constexpr int kTcBK = 64;              // D per pipeline stage
+constexpr int kTcLd = kTcBK + 8;       // shared row length (kBN == kTcBK): +16 bytes
+constexpr int kTcThreads = 128;        // four warps, 16 F columns each
+
+constexpr int kTcStages = 4;           // cp.async ring: 3 steps in flight while one computes
+
+template <int BT> struct TcTile {
+  static constexpr int kStageElems = (kTcBK + BT) * kTcLd;    // w [64 D][72], x [BT][72]
+  static constexpr int kSmem = kTcStages * kStageElems * static_cast<int>(sizeof(__nv_bfloat16));
+};
+
+template <int BT>
+__global__ void __launch_bounds__(kTcThreads)
+gmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+              const int* __restrict__ bmap, __nv_bfloat16* __restrict__ y, int E, int D, int F,
+              int64_t sx, int64_t swe, int64_t swd) {
+  using Tl = TcTile<BT>;
+  constexpr int NT = BT / 8;
+  extern __shared__ __align__(16) unsigned char gmm_smem[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(gmm_smem);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int blk = blockIdx.x;
+  const int n0 = blockIdx.y * kBN;
+  const int e = bmap[blk];
+  if (e < 0 || e >= E) __trap();                   // the layout's contract: bmap in [0, E)
+  const __nv_bfloat16* xb = x + static_cast<int64_t>(blk) * BT * sx;
+  const __nv_bfloat16* wb = w + static_cast<int64_t>(e) * swe + n0;
+  const int KT = D / kTcBK;
+
+  auto load = [&](int kt) {                        // D step kt into its ring slot
+    __nv_bfloat16* ws = smem + (kt % kTcStages) * Tl::kStageElems;
+    __nv_bfloat16* xs = ws + kTcBK * kTcLd;
+    const int k0 = kt * kTcBK;
+#pragma unroll
+    for (int i = 0; i < kTcBK * 8 / kTcThreads; ++i) {    // 8 chunks of 16 bytes a row
+      const int c = tid + i * kTcThreads;
+      const int r = c / 8, col = c % 8 * 8;
+      rt::cp_async16(ws + r * kTcLd + col, wb + static_cast<int64_t>(k0 + r) * swd + col);
+    }
+#pragma unroll
+    for (int i = 0; i < (BT * 8 + kTcThreads - 1) / kTcThreads; ++i) {
+      const int c = tid + i * kTcThreads;
+      const int r = c / 8, col = c % 8 * 8;
+      if (BT * 8 % kTcThreads == 0 || c < BT * 8)
+        rt::cp_async16(xs + r * kTcLd + col, xb + r * sx + k0 + col);
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < KT) load(s);
+    rt::cp_async_commit();
+  }
+  const int j8 = lane / 8, r8 = lane % 8;
+  for (int kt = 0; kt < KT; ++kt) {
+    rt::cp_async_wait<kTcStages - 2>();              // step kt has landed
+    __syncthreads();                               // ... for every thread; kt-1's slot is free
+    if (kt + kTcStages - 1 < KT) load(kt + kTcStages - 1);
+    rt::cp_async_commit();
+    const __nv_bfloat16* ws = smem + (kt % kTcStages) * Tl::kStageElems;
+    const __nv_bfloat16* xs = ws + kTcBK * kTcLd;
+#pragma unroll
+    for (int ks = 0; ks < kTcBK / 16; ++ks) {
+      // A = w^T: 16 F columns x 16 D rows; matrices (f lo, d lo), (f hi, d lo),
+      // (f lo, d hi), (f hi, d hi), stored d-major
+      uint32_t a[4];
+      rt::ldsm_x4_trans(a, ws + (ks * 16 + r8 + (j8 / 2) * 8) * kTcLd + warp * 16 + (j8 % 2) * 8);
+      if constexpr (NT == 1) {
+        uint32_t b[2];                             // B = x^T: 16 D x 8 rows, stored row-major
+        rt::ldsm_x2(b, xs + r8 * kTcLd + ks * 16 + (j8 % 2) * 8);
+        rt::mma_bf16_16816(acc[0], a, b);
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT; nt += 2) {       // two n8 tiles per ldmatrix
+          uint32_t b[4];
+          rt::ldsm_x4(b, xs + ((nt + j8 / 2) * 8 + r8) * kTcLd + ks * 16 + (j8 % 2) * 8);
+          rt::mma_bf16_16816(acc[nt], a, b);
+          rt::mma_bf16_16816(acc[nt + 1], a, b + 2);
+        }
+      }
+    }
+  }
+  rt::cp_async_wait<0>();
+
+  // acc[nt] holds y^T rows (F) g, g+8 x columns (rows of y) 2t, 2t+1 of tile nt
+  const int g = lane / 4, t = lane % 4;
+  const int f = n0 + warp * 16 + g;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    __nv_bfloat16* y0 = y + (static_cast<int64_t>(blk) * BT + nt * 8 + 2 * t) * F + f;
+    y0[0] = __float2bfloat16(acc[nt][0]);
+    y0[F] = __float2bfloat16(acc[nt][1]);
+    y0[8] = __float2bfloat16(acc[nt][2]);
+    y0[F + 8] = __float2bfloat16(acc[nt][3]);
+  }
+}
+
+template <int BT>
+int launch_tc(const void* x, const void* w, const int* bmap, void* y, int nt, int E, int D,
+              int F, int64_t sx, int64_t swe, int64_t swd, cudaStream_t stream) {
+  constexpr int smem = TcTile<BT>::kSmem;
+  auto kernel = gmm_tc_kernel<BT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(nt, F / kBN);
+  kernel<<<grid, kTcThreads, smem, stream>>>(static_cast<const __nv_bfloat16*>(x),
+                                             static_cast<const __nv_bfloat16*>(w), bmap,
+                                             static_cast<__nv_bfloat16*>(y), E, D, F, sx, swe,
+                                             swd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_bt_tc(int bt, const void* x, const void* w, const int* bmap, void* y, int nt, int E,
+                   int D, int F, int64_t sx, int64_t swe, int64_t swd, cudaStream_t s) {
+  switch (bt) {
+    case 8: return launch_tc<8>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 16: return launch_tc<16>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 32: return launch_tc<32>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 64: return launch_tc<64>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 128: return launch_tc<128>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. nt = T_pad / block_t row blocks;
@@ -197,6 +335,6 @@ extern "C" int grouped_matmul_fwd(const void* x, const void* w, const void* bmap
   if (dtype == rt::kFloat32)
     return dispatch_bt<float>(block_t, x, w, b, y, nt, E, D, F, sx, swe, swd, s);
   if (dtype == rt::kBFloat16)
-    return dispatch_bt<__nv_bfloat16>(block_t, x, w, b, y, nt, E, D, F, sx, swe, swd, s);
+    return dispatch_bt_tc(block_t, x, w, b, y, nt, E, D, F, sx, swe, swd, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,12 +5,22 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``
 GQA attention with an online softmax in float32, scale ``hd**-0.5``, masked
 scores at the finite ``-1e30`` and ``l`` clamped at ``1e-30``.
 
-The kernel is ``csrc/flash_attention.cu``: one block per (q tile, head,
-batch), looping only over the kv tiles the mask lets through. At the serving
-shapes it is bound by launch latency and its float32 FMA loop, not by HBM
-bytes (see the note in the source); it takes float32 and bfloat16 in the
-public ``[B, S, H, hd]`` / ``[B, S, KV, hd]`` layout with strides, hd in
-{16, 32, 64, 128}, and masks its own ragged edges.
+The kernel is ``csrc/flash_attention.cu``, looping in each block only over
+the kv tiles the mask lets through. It takes the public ``[B, S, H, hd]`` /
+``[B, S, KV, hd]`` layout with strides, hd in {16, 32, 64, 128}, and masks
+its own ragged edges. At the serving shapes (S <= 256) it is bound by
+latency, not by HBM bytes: how many SMs its blocks occupy and how long each
+block's chain of loads and arithmetic is (see the note in the source). The
+route follows the type (:data:`ROUTES`):
+
+- bfloat16, the serving path: 16 query rows per warp, QK^T and PV on the
+  tensor cores (``mma.sync``, float32 sums, P rounded to bf16), K/V tiles
+  streamed through rings of ``cp.async`` copies; where the grid leaves the
+  card room, a long row's kv tiles are split over 2-4 groups of warps, and
+  two q tiles may share a block and its K/V tiles. Rows must be 16-byte
+  aligned.
+- float32: a float32 FMA loop (one block per 64 query rows), exact to
+  2e-4, which TF32 would not be.
 
 :func:`flash_attention_plain` is the same function in plain PyTorch (the JAX
 package's ``attend_plain``): the CPU path and the kernel's yardstick of
@@ -29,6 +39,8 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's route for each type it takes (csrc/flash_attention.cu dispatches on it)
+ROUTES = {torch.float32: "float32 FMA", torch.bfloat16: "bf16 tensor cores (mma.sync)"}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -87,6 +99,9 @@ def _check(q, k, v):
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dimension of q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16:       # the tensor-core route's 16-byte copies
+        if any(t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]) for t in (q, k, v)):
+            raise ValueError("bfloat16 q, k and v must be 16-byte aligned, rows included")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -12,16 +12,25 @@ w ``[E, D, F]`` and ``block_to_expert`` ``[T_pad / block_t]`` int32 in
 
 The kernel is ``csrc/moe_gmm.cu``: one block per (row block, 64-column F
 tile), which loads its own expert id (the TPU's scalar prefetch) and loops
-over D in tiles staged in shared memory as float32, with float32 FMA into a
-small register micro-tile per thread. At the serving shapes of
-``moonshot_v1_16b`` (D 2048, F 1408, 64 experts, a few rows per expert) it
-is bound by the bytes of the experts' weights: each distinct expert's
-``D*F`` values are read once per row block, so the layout keeps an expert's
-rows in as few blocks as it can, and a decode step (12 assignments with 2
-slots) reads ~69 MB (0.021 ms at 3.35 TB/s) where the operations, ``2 *
-rows * D * F``, are far below the bf16 ridge. It takes float32 and bfloat16,
-``block_t`` in {8, 16, 32, 64, 128}, D and F multiples of 64, x rows and w
-experts/rows through strides with the last dimension contiguous.
+over D. At the serving shapes of ``moonshot_v1_16b`` (D 2048, F 1408, 64
+experts, a few rows per expert) it is bound by the bytes of the experts'
+weights: each distinct expert's ``D*F`` values are read once per row block,
+so the layout keeps an expert's rows in as few blocks as it can, and a
+decode step (12 assignments with 2 slots) reads ~64 MB (0.019 ms at 3.35
+TB/s) where the operations, ``2 * rows * D * F``, are far below the bf16
+ridge: the kernel is as fast as the weights stream from HBM. The route
+follows the type (:data:`ROUTES`):
+
+- bfloat16, the serving path: the tensor cores (``mma.sync``, float32
+  sums) with the weights as the M side, ``y^T = w[e]^T x^T``, so that an
+  8-row block is one n8 tile with no padding; weight and x tiles stream
+  through a 4-stage ring of ``cp.async`` copies.
+- float32: float32 FMA over tiles staged in shared memory, exact to
+  2e-4.
+
+It takes ``block_t`` in {8, 16, 32, 64, 128}, D and F multiples of 64, x
+rows and w experts/rows through strides with the last dimension contiguous
+and 16-byte aligned.
 
 :func:`grouped_matmul_plain` is the JAX package's oracle
 (``kernels/ref.py::grouped_matmul_ref``) in plain PyTorch, a loop over the
@@ -41,6 +50,8 @@ from repro_torch.kernels import build
 BLOCK_TS = (8, 16, 32, 64, 128)
 TILE = 64               # D and F must be multiples of this
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's route for each type it takes (csrc/moe_gmm.cu dispatches on it)
+ROUTES = {torch.float32: "float32 FMA", torch.bfloat16: "bf16 tensor cores (mma.sync)"}
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, block_to_expert: torch.Tensor,

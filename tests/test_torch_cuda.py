@@ -297,3 +297,73 @@ def test_engine_on_the_card_serves_moonshot_through_b4(card, monkeypatch):
     assert ms.mamba_scan.launches == 0
     insts = [i for w in engine.workers.values() for i in w.instances.get("moe", [])]
     assert all(len(t) == 5 for i in insts for t in i.generated.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("S", [1, 15, 17, 33, 256])
+def test_flash_routes_match_plain_at_ragged_lengths(card, S, hd, dtype):
+    """Each route (bf16: tensor cores, f32: FMA) against the plain version at
+    S off the 16-row tiles: causal, windowed (whole kv tiles masked for some
+    rows of a q tile) and bidirectional, with GQA groups of 1, 2 and 4."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=card).manual_seed(S * hd)
+    for causal, window, G in ((True, 0, 1), (True, 7, 2), (False, 0, 4), (True, 0, 4),
+                              (False, 5, 2)):
+        q = _randn(gen, (2, S, 2 * G, hd), dtype, card)
+        k = _randn(gen, (2, S, 2, hd), dtype, card)
+        v = _randn(gen, (2, S, 2, hd), dtype, card)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype],
+                                   msg=lambda m: f"causal={causal} window={window} G={G}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D,F", [(2048, 1408), (1408, 2048)])    # moonshot's wg/wi, wo
+@pytest.mark.parametrize("bt", [8, 16, 32, 64, 128])
+def test_grouped_matmul_routes_match_plain_with_padding_blocks(card, bt, D, F, dtype):
+    """Each route at moonshot's widths and every block_t: three experts' groups
+    padded with zero rows to whole blocks, then two all-padding blocks that
+    repeat the last expert, as build_layout leaves them."""
+    from repro_torch.kernels import moe_gmm
+    gen = torch.Generator(device=card).manual_seed(bt + D)
+    groups = ((2, bt + 3), (5, 1), (7, 2 * bt))              # (expert, rows)
+    bmap, x = [], []
+    for e, rows in groups:
+        nblk = -(-rows // bt)
+        bmap += [e] * nblk
+        x += [_randn(gen, (rows, D), dtype, card),
+              torch.zeros(nblk * bt - rows, D, dtype=dtype, device=card)]
+    bmap += [groups[-1][0]] * 2
+    x = torch.cat(x + [torch.zeros(2 * bt, D, dtype=dtype, device=card)])
+    bmap = torch.tensor(bmap, dtype=torch.int32, device=card)
+    w = (torch.randn(8, D, F, generator=gen, device=card) / D ** 0.5).to(dtype)
+    out = moe_gmm.grouped_matmul(x, w, bmap, bt)
+    ref = moe_gmm.grouped_matmul_plain(x, w, bmap, bt)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    assert out[(x == 0).all(1)].abs().max() == 0
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
+    (1, 256, 16, 16, 128, True, 0),    # two q tiles a block, kv over 4 splits (moonshot S256)
+    (1, 512, 16, 16, 128, True, 0),    # ... 2 splits
+    (1, 512, 16, 4, 128, True, 100),   # ... a window: whole kv tiles masked for some rows
+    (1, 256, 4, 2, 128, False, 0),     # one q tile a block, 4 splits, bidirectional
+    (1, 256, 8, 4, 32, True, 0),       # ... 4 splits
+    (1, 64, 8, 8, 64, True, 0),        # ... 2 splits
+    (2, 512, 16, 8, 128, True, 0),     # ... a grid that fills the card: 1 split
+    (4, 512, 8, 2, 64, True, 100),     # ... 1 split, a window
+])
+def test_flash_bf16_block_shapes_match_plain(card, B, S, H, KV, hd, causal, window):
+    """The bf16 route's block shapes (q tiles a block, kv splits), which the
+    launcher picks from the kv tiles a q tile visits and the grid's size
+    against the card's 132 SMs, each against the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=card).manual_seed(S + H + hd)
+    q = _randn(gen, (B, S, H, hd), torch.bfloat16, card)
+    k = _randn(gen, (B, S, KV, hd), torch.bfloat16, card)
+    v = _randn(gen, (B, S, KV, hd), torch.bfloat16, card)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)

@@ -99,3 +99,28 @@ def test_decode_plain_masks_past_valid_len():
 ])
 def test_decode_split_fills_the_card(B, KV, W, chunk):
     assert split_chunk(B, KV, W) == chunk
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "moe_gmm"])
+def test_b1_b4_route_by_type_and_refuse_the_cpu_first(name):
+    """B1 and B4 take bfloat16 through the tensor cores and float32 through the
+    FMA loop, a route for every type they take; a CPU tensor of either type is
+    refused before any alignment check, build or launch."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    assert set(mod.ROUTES) == set(mod._DTYPES) == {torch.float32, torch.bfloat16}
+    assert "tensor cores" in mod.ROUTES[torch.bfloat16]
+    assert "FMA" in mod.ROUTES[torch.float32]
+    for dtype in mod.ROUTES:
+        if name == "flash_attention":
+            q = torch.zeros(1, 17, 4, 66, dtype=dtype)[..., 2:]    # rows off 16 bytes
+            args = (q, q[:, :, :2], q[:, :, :2])
+            fn = mod.flash_attention
+        else:
+            x = torch.zeros(16, 66, dtype=dtype)[:, 2:]
+            args = (x, torch.zeros(2, 64, 64, dtype=dtype), torch.zeros(2, dtype=torch.int32), 8)
+            fn = mod.grouped_matmul
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            fn(*args)
+        assert fn.launches == 0
