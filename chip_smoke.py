@@ -6,18 +6,23 @@
 Needs one CUDA card of compute capability 9.0 (an H100) and ``nvcc``; it
 imports nothing of JAX. Phases, each of which fails the run:
 
-1. environment: the card's name and power limit, torch, the capability;
+1. environment: the card's name, power limit and max SM clock, torch, the
+   capability;
 2. build: the four kernels of the serving paths from ``src/repro_torch/csrc``,
-   one ``nvcc`` each, all at once;
+   one ``nvcc`` each, all at once; registers and spills of every kernel;
 3. kernels against their plain PyTorch versions on the card, at the serving
-   shapes and at the JAX package's sweep shapes: attention (B1, B2) and the
+   shapes, at the JAX package's sweep shapes and at the head dims of its
+   other configs (80, 96, 256): attention (B1, B2, each B2 line naming its
+   route: one launch or split) and the
    grouped matmul (B4, on layouts routed as moonshot_v1_16b routes) in
    float32 (TF32 off, the FMA route) within 2e-4 and bfloat16 (the
    tensor-core route) within 2e-2, each line naming its route, the selective
    scan (B3) within 2e-3 and 5e-2, its output and its final state; times of
    kernel, plain version, bound and one library call where there is one
    (``scaled_dot_product_attention`` for attention, ``torch._grouped_mm``
-   for B4, timed here only; no PyTorch call computes a selective scan);
+   for B4, timed here only; no PyTorch call computes a selective scan;
+   B3's bound is the largest of bytes, float32 operations and its
+   exponentials on the SFUs);
 4. engine: the port's ``Engine`` serves 24 requests of ``tiny_lm`` (c=4) and
    ``small_lm`` (c=2) at full width in bfloat16, and must have launched B1
    and B2;
@@ -29,8 +34,9 @@ imports nothing of JAX. Phases, each of which fails the run:
    (c=2) at full width and depth (48 layers, 64 experts, top-6, bfloat16),
    and must have launched B4 three times per layer per model call, B1 and
    B2, and not B3; the same cold start, memory and timing report;
-7. model parity: an f32 ``tiny_lm``, and f32 ``falcon_mamba_7b`` and
-   ``moonshot_v1_16b`` cut to 2 layers at full width, on the card (kernels)
+7. model parity: an f32 ``tiny_lm``, a reduced f32 ``tiny_lm`` at head dims
+   96 and 256, and f32 ``falcon_mamba_7b`` and ``moonshot_v1_16b`` cut to 2
+   layers at full width, on the card (kernels)
    against the same weights on the CPU (plain versions): logits and caches
    within 2e-3, greedy tokens equal, over a prefill and 4 decode steps.
 
@@ -57,6 +63,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12                         # H100 SXM HBM3
 PEAK_FLOP_S = {"bfloat16": 989e12,            # dense tensor-core bf16
                "float32": 67e12}              # float32 outside the tensor cores
+SMS = 132                                     # H100 SXM streaming multiprocessors
+SFU_PER_CLOCK = 16                            # ex2 a clock per SM (compute capability 9.0)
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}     # tests/test_kernels.py:17-19
 SCAN_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # tests/test_kernels.py:78-79
 LOGIT_TOL = 2e-3                              # tests/test_decode_parity.py
@@ -84,6 +92,19 @@ FLASH_CASES = [
     ("sweep window", 2, 512, 8, 2, 64, True, 100),
     ("sweep", 1, 128, 2, 1, 32, True, 0),
 ]
+# the head dims of the JAX package's other configs (hd 256, 96, 80), at the
+# engine's S32 and S256 buckets: gemma3_12b (16 heads, 8 kv, its local
+# layers' window of 1024 at S past it), phi3_vision, hubert_xlarge (an
+# encoder: bidirectional). Like every case added after the lists above, each
+# draws its inputs from a generator of its own (_own_gen)
+FLASH_HD_CASES = [
+    ("gemma3 S32", 1, 32, 16, 8, 256, True, 0),
+    ("gemma3 S256", 1, 256, 16, 8, 256, True, 0),
+    ("gemma3 local S1280", 1, 1280, 16, 8, 256, True, 1024),
+    ("phi3 S32", 1, 32, 32, 32, 96, True, 0),
+    ("phi3 S256", 1, 256, 32, 32, 96, True, 0),
+    ("hubert S256", 1, 256, 16, 16, 80, False, 0),
+]
 # (label, B, W, H, KV, hd, ring): the engine's decodes (B = slots, W = max_len)
 # and the JAX sweep (tests/test_kernels.py:44-48)
 DECODE_CASES = [
@@ -95,6 +116,14 @@ DECODE_CASES = [
     ("sweep", 2, 256, 8, 2, 64, False),
     ("sweep ring", 3, 128, 4, 4, 32, True),
     ("sweep", 1, 512, 16, 2, 128, False),
+]
+# gemma3_12b (hd 256; its local layers' ring of 1024 takes the split route),
+# phi3_vision (hd 96), and hubert_xlarge's heads (hd 80)
+DECODE_HD_CASES = [
+    ("gemma3 c2 W64", 2, 64, 16, 8, 256, False),
+    ("gemma3 local c2 W1024 ring", 2, 1024, 16, 8, 256, True),
+    ("phi3 c2 W64", 2, 64, 32, 32, 96, False),
+    ("hubert-shaped c2 W64", 2, 64, 16, 16, 80, False),
 ]
 # (label, Bt, S, DI, N): falcon_mamba_7b's prefills (prompts bucketed to 16/32,
 # 64 and 256 for longer ones), float32 with a non-zero h0 as mamba_forward
@@ -144,11 +173,14 @@ def check(cond, msg):
         raise SmokeError(msg)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def nvidia_smi(query="name,power.limit") -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+MAX_SM_HZ = None     # the card's max SM clock, read in phase 1 (B3's SFU bound)
 
 
 def time_ms(fn, iters=100, warmup=10) -> float:
@@ -166,21 +198,44 @@ def time_ms(fn, iters=100, warmup=10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=50):
+def device_ms(fn, iters=50, wrapper=None):
     """Mean device time per call of the kernels ``fn`` launches, from the
-    profiler's CUDA activity (None where the profiler sees no device time)."""
+    profiler's CUDA activity; None where the profiler saw no device time.
+    The profiler drops kernel events now and then, more of them after
+    windows of many events, so each kernel counts with its events' mean time
+    times its launches a call, not with its events' sum over ``iters``. For
+    a port kernel's ``wrapper`` those are its launch count's rise over the
+    window per call (each CUDA kernel a wrapper launches runs once a wrapper
+    launch), exact, and a kernel the profiler saw fewer times is reported;
+    for the plain versions and library calls they are a kernel's events over
+    ``iters``, rounded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    n0 = wrapper.launches if wrapper is not None else 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    return sum(spans) / iters / 1e3 if spans else None
+    spans = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not spans:
+        return None
+    total = 0.0
+    for name, d in spans.items():
+        if wrapper is None:
+            per_call = max(1, round(len(d) / iters))
+        else:
+            per_call = (wrapper.launches - n0) / iters
+            if len(d) < per_call * iters:
+                print(f"[kernels] the profiler saw {len(d)} of the {per_call * iters:g} "
+                      f"launches of {name}; its time is their mean")
+        total += sum(d) / len(d) * per_call
+    return total / 1e3
 
 
 def _ms(x):
@@ -195,8 +250,12 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 def phase_environment():
     import torch
+    global MAX_SM_HZ
     smi = nvidia_smi()
     print(f"[env] nvidia-smi: {smi}")
+    clock = nvidia_smi("clocks.max.sm")
+    MAX_SM_HZ = float(clock.split()[0]) * 1e6
+    print(f"[env] max SM clock {clock}")
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     cap = torch.cuda.get_device_capability(0)
@@ -216,18 +275,52 @@ def phase_build():
     took = build.build()
     for name in build.SOURCES:
         build.load(name)
-        regs = [ln.strip() for ln in build.build_log(name).splitlines()
-                if "registers" in ln or "spill" in ln]
         print(f"[build] {name}: {build.library_path(name).name} "
               f"({took.get(name, 0.0):.1f} s)")
-        for ln in regs:
-            print(f"[build]   {ln}")
+        for fn, regs, spill in _ptxas_report(build.build_log(name)):
+            print(f"[build]   {fn}: {regs}; {spill}")
     print(f"[build] total {time.perf_counter() - t0:.1f} s")
+
+
+def _ptxas_report(log):
+    """(kernel, registers, spills) from nvcc's -Xptxas -v output, kernel names
+    demangled where c++filt is there."""
+    import re
+    import shutil
+    rows, fn, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn, spill = m.group(1), ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and fn:
+            rows.append([fn, ln.split(":", 1)[-1].strip(), spill])
+            fn = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r[0] = re.sub(r"\(anonymous namespace\)::", "", n).split("(")[0]
+    return rows
 
 
 def _inputs(gen, shape, dtype, device="cuda"):
     import torch
     return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def _own_gen(*case):
+    """A generator seeded from the case itself, for the cases that came after
+    phase 3's first lists: those draw from one generator in turn, and a case
+    added among them would change the inputs of every case after it."""
+    import zlib
+
+    import torch
+    seed = zlib.crc32(" ".join(map(str, case)).encode())
+    return torch.Generator(device="cuda").manual_seed(seed)
 
 
 def phase_kernels():
@@ -242,10 +335,12 @@ def phase_kernels():
     rows = {}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         tol = TOL[dname]
-        for label, B, S, H, KV, hd, causal, window in FLASH_CASES:
-            q = _inputs(gen, (B, S, H, hd), dtype)
-            k = _inputs(gen, (B, S, KV, hd), dtype)
-            v = _inputs(gen, (B, S, KV, hd), dtype)
+        for case in FLASH_CASES + FLASH_HD_CASES:
+            label, B, S, H, KV, hd, causal, window = case
+            g = gen if case in FLASH_CASES else _own_gen("flash_attention", label, dname)
+            q = _inputs(g, (B, S, H, hd), dtype)
+            k = _inputs(g, (B, S, KV, hd), dtype)
+            v = _inputs(g, (B, S, KV, hd), dtype)
             out = fa.flash_attention(q, k, v, causal=causal, window=window)
             ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
@@ -258,13 +353,17 @@ def phase_kernels():
             if not label.startswith("sweep"):
                 rows[("flash_attention", label, dname)] = _time_flash(
                     F, fa, q, k, v, causal, window, dname, err)
-        for label, B, W, H, KV, hd, ring in DECODE_CASES:
-            q = _inputs(gen, (B, H, hd), dtype)
-            kc = _inputs(gen, (B, W, KV, hd), dtype)
-            vc = _inputs(gen, (B, W, KV, hd), dtype)
+        for case in DECODE_CASES + DECODE_HD_CASES:
+            label, B, W, H, KV, hd, ring = case
+            g = gen if case in DECODE_CASES else _own_gen("decode_attention", label, dname)
+            q = _inputs(g, (B, H, hd), dtype)
+            kc = _inputs(g, (B, W, KV, hd), dtype)
+            vc = _inputs(g, (B, W, KV, hd), dtype)
             rng = np.random.default_rng(B * W + H)
             if label.startswith("sweep"):
                 pos = rng.integers(5, W * 2 if ring else W, B)
+            elif ring:   # a local layer's ring, wrapped
+                pos = rng.integers(W, 2 * W, B)
             else:   # the engine's decode positions: prompt bucket + a few tokens
                 pos = rng.integers(16, 40, B)
             pos = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
@@ -273,9 +372,10 @@ def phase_kernels():
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+            route = dec.decode_route(B, KV, W, hd, q.element_size())
             print(f"[kernels] decode_attention {label} B{B} W{W} H{H} KV{KV} hd{hd} "
-                  f"ring={ring} {dname}: max_abs_err {err:.3e} (tol {tol:g}) "
-                  f"{'ok' if ok else 'FAIL'}")
+                  f"ring={ring} {dname} [{route[0]}, {route[1]} keys a block]: "
+                  f"max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
             check(ok, f"decode_attention {label} {dname} disagrees with its plain version")
             if not label.startswith("sweep"):
                 rows[("decode_attention", label, dname)] = _time_decode(
@@ -289,7 +389,7 @@ def phase_kernels():
         if r["library_ms"] is not None:
             lib = (f"library_ms {r['library_ms']:.4f} (device {_ms(r['library_device_ms'])}, "
                    f"max_abs_err {r['library_err']:.1e}, {r['library']})")
-        print(f"[kernels] time {name} {label} {dname}: kernel_ms {r['ms']:.4f} "
+        print(f"[kernels] time {name} {label} {dname} ({r['shape']}): kernel_ms {r['ms']:.4f} "
               f"(device {_ms(r['device_ms'])}) plain_ms {r['plain_ms']:.4f} "
               f"(device {_ms(r['plain_device_ms'])}) {lib} "
               f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
@@ -339,15 +439,20 @@ def _time_mamba(ms, args, dname, err):
     Bt, S, DI = x.shape
     N = Bc.shape[2]
     # each input read once, y and h_S written once; per (t, channel, state) an
-    # exp and 6 float32 operations, per (t, channel) 3 (dt*x and D*x + y)
+    # exp and 6 float32 operations, per (t, channel) 3 (dt*x and D*x + y); the
+    # exps on the SFUs, 16 a clock per SM at the card's max SM clock
     nbytes = ((dt.numel() + 2 * x.numel() + Bc.numel() + Cc.numel()) * x.element_size()
               + (A.numel() + D.numel() + (1 + (h0 is not None)) * Bt * DI * N) * 4)
     b_ms, b_by = bound_ms(nbytes, Bt * S * DI * (7.0 * N + 3), dname)
+    sfu_ms = Bt * S * DI * N / (SFU_PER_CLOCK * SMS * MAX_SM_HZ) * 1e3
+    if sfu_ms > b_ms:
+        b_ms, b_by = sfu_ms, "operations"
     kern = lambda: ms.mamba_scan(*args)
     plain = lambda: ms.mamba_scan_plain(*args)
     plain_iters = max(5, 1600 // S)      # the plain loop makes ~5 torch calls per step
-    return {"shape": f"Bt{Bt} S{S} DI{DI} N{N}", "max_abs_err": err,
-            "ms": time_ms(kern), "device_ms": device_ms(kern),
+    binds = "SFU exps" if b_ms == sfu_ms else b_by
+    return {"shape": f"Bt{Bt} S{S} DI{DI} N{N}, bound by {binds}", "max_abs_err": err,
+            "ms": time_ms(kern), "device_ms": device_ms(kern, wrapper=ms.mamba_scan),
             "plain_ms": time_ms(plain, iters=plain_iters, warmup=2),
             "plain_device_ms": device_ms(plain, iters=plain_iters),
             "library_ms": None, "library_device_ms": None, "library_err": None,
@@ -429,7 +534,7 @@ def _time_gmm(moe_gmm, args, kept, err):
         lib = lambda: torch.bmm(x.view(-1, bt, D), w[bmap.long()]).view(T, F)
         lib_name = "torch.bmm over w[block_to_expert], the gather included"
     lib_err = (lib().float() - plain().float()).abs().max().item()
-    return _timings(lambda: moe_gmm.grouped_matmul(*args), plain, lib,
+    return _timings(lambda: moe_gmm.grouped_matmul(*args), moe_gmm.grouped_matmul, plain, lib,
                     f"T_pad{T} bt{bt} D{D} F{F} E{E}, {experts} experts", err, lib_err,
                     b_ms, b_by, library=lib_name,
                     plain_iters=20)        # the plain loop makes ~4 torch calls per block
@@ -457,14 +562,14 @@ def _time_flash(F, fa, q, k, v, causal, window, dname, err):
     b_ms, b_by = bound_ms(nbytes, 4.0 * hd * pairs * B * H, dname)
     kern = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
     plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    return _timings(kern, plain, lib, f"B{B} S{S} H{H} KV{KV} hd{hd}", err, lib_err,
-                    b_ms, b_by)
+    return _timings(kern, fa.flash_attention, plain, lib, f"B{B} S{S} H{H} KV{KV} hd{hd}", err,
+                    lib_err, b_ms, b_by)
 
 
-def _timings(kern, plain, lib, shape, err, lib_err, b_ms, b_by,
+def _timings(kern, wrapper, plain, lib, shape, err, lib_err, b_ms, b_by,
              library="scaled_dot_product_attention", plain_iters=100):
     return {"shape": shape, "max_abs_err": err, "library": library,
-            "ms": time_ms(kern), "device_ms": device_ms(kern),
+            "ms": time_ms(kern), "device_ms": device_ms(kern, wrapper=wrapper),
             "plain_ms": time_ms(plain, iters=plain_iters),
             "plain_device_ms": device_ms(plain, iters=plain_iters // 2),
             "library_ms": time_ms(lib), "library_device_ms": device_ms(lib),
@@ -490,8 +595,9 @@ def _time_decode(F, dec, q, kc, vc, pos, ring, dname, err):
     b_ms, b_by = bound_ms(nbytes, 4.0 * hd * keys * H, dname)
     kern = lambda: dec.decode_attention(q, kc, vc, pos, ring=ring)
     plain = lambda: dec.decode_attention_plain(q, kc, vc, pos, ring=ring)
-    return _timings(kern, plain, lib, f"B{B} W{W} H{H} KV{KV} hd{hd}", err, lib_err,
-                    b_ms, b_by)
+    route = dec.decode_route(B, KV, W, hd, q.element_size())[0]
+    return _timings(kern, dec.decode_attention, plain, lib,
+                    f"B{B} W{W} H{H} KV{KV} hd{hd}, {route}", err, lib_err, b_ms, b_by)
 
 
 def phase_engine():
@@ -553,7 +659,7 @@ def phase_engine():
           f"(per request: {launches['flash_attention'] / 24:.2f} flash, "
           f"{launches['decode_attention'] / 24:.2f} decode)")
     _profile_engine(engine, Request, "tiny-gen", "tiny_lm", (4, 9, 14, 19, 23, 6, 11, 17),
-                    ("flash_fwd_tc_kernel", "decode_partial_kernel", "decode_combine_kernel"))
+                    ("flash_fwd_tc_kernel", "decode_kernel", "decode_combine_kernel"))
     return launches
 
 
@@ -703,7 +809,7 @@ def phase_engine_moe():
     check(launches["mamba_scan"] == 0, "mamba_scan ran in a model without Mamba layers")
     _time_model_calls(insts[0], "engine-moe")
     _profile_engine(engine, Request, "moe-gen", "moonshot_v1_16b", (4, 9, 14, 19),
-                    ("gmm_tc_kernel", "flash_fwd_tc_kernel", "decode_partial_kernel",
+                    ("gmm_tc_kernel", "flash_fwd_tc_kernel", "decode_kernel",
                      "decode_combine_kernel"))
     return {"grouped_matmul": launches["grouped_matmul"]}
 
@@ -748,9 +854,12 @@ def _profile_engine(engine, Request, fn, arch, sizes, port_kernels):
 
 
 def phase_parity():
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced
 
     _parity(replace(get_config("tiny_lm"), dtype="float32"), "tiny_lm")
+    for hd in (96, 256):     # the head dims of phi3_vision and gemma3_12b through B1/B2
+        _parity(replace(reduced(get_config("tiny_lm")), head_dim=hd, dtype="float32"),
+                f"tiny_lm reduced to 2 layers, head_dim {hd}")
     _parity(replace(get_config("falcon_mamba_7b"), dtype="float32", num_layers=2),
             "falcon_mamba_7b (2 layers, full width)")
     _parity(replace(get_config("moonshot_v1_16b"), dtype="float32", num_layers=2),

@@ -81,4 +81,36 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// 16 bytes of T to and from float32
+template <typename T> struct Cvt;
+template <> struct Cvt<float> {
+  static __device__ __forceinline__ void unpack(const uint4& v, float* f) {
+    f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
+template <> struct Cvt<__nv_bfloat16> {
+  static __device__ __forceinline__ void unpack(const uint4& v, float* f) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                      pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+  }
+};
+
+// v rounded to T and back, as a framework rounds an intermediate of type T
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_float(from_float<T>(v));
+}
+
 }  // namespace rt

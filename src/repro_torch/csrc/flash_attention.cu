@@ -31,7 +31,10 @@
 // (m, l, o) are combined through shared memory at the end, each scaled by
 // exp(m_w - max m). Two 16-row q tiles may share a block (QW = 2), which
 // halves the blocks and the K/V bytes read from L2; the launcher takes the
-// shape (QW, NW) with the shortest chain for the grid (tc_shape).
+// shape (QW, NW) with the shortest chain for the grid (tc_shape), among the
+// shapes whose shared memory fits a block (at hd 256, at most 2 splits). At
+// hd 256 Q's fragments are read from shared memory at each step instead of
+// being held in registers beside o.
 //
 // float32: kept for exactness (TF32 on the tensor cores would not hold 2e-4);
 // not on the serving path. One block of 256 threads per (64-row q tile, head,
@@ -184,7 +187,18 @@ template <int HD, int QW, int NW> struct TcFlash {
   // the combine of NW > 1 reuses the rings: per warp (m, l) and o, [HD/8 + 1][32][4] floats
   static constexpr int kComb = (HD / 8 + 1) * 32 * 4;
   static_assert(NW == 1 || kWarps * kComb * 4 <= NW * kRing * 2, "the combine fits");
+  // the shared memory a block may take; a shape above it is never instantiated
+  static constexpr bool kFits = kSmem <= 227 * 1024;
+  // Q's fragments stay in registers up to hd 128; at hd 256 they (64
+  // registers) beside o (128) would spill, so each kk step reads its own
+  // from shared memory, where Q stays for the whole kernel
+  static constexpr bool kQRegs = HD <= 128;
 };
+
+// the most kv splits a block of this head dim can take within shared memory
+template <int HD> constexpr int tc_max_nw() {
+  return TcFlash<HD, 1, 4>::kFits && TcFlash<HD, 2, 4>::kFits ? 4 : 2;
+}
 
 template <int HD, int QW, int NW>
 __global__ void __launch_bounds__(32 * QW * NW)
@@ -255,10 +269,12 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int g = lane / 4, tq = lane % 4;        // fragment row group, column pair
   const int j8 = lane / 8, r8 = lane % 8;       // ldmatrix: matrix, row
   const int qi[2] = {q0 + qsub * kTcBQ + g, q0 + qsub * kTcBQ + g + 8};
-  uint32_t qf[HD / 16][4];
+  uint32_t qf[L::kQRegs ? HD / 16 : 1][4];
+  if constexpr (L::kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)          // (rows lo, d lo), (hi, lo), (lo, hi), (hi, hi)
-    rt::ldsm_x4(qf[kk], q_s + (qsub * kTcBQ + r8 + (j8 % 2) * 8) * kLd + kk * 16 + (j8 / 2) * 8);
+    for (int kk = 0; kk < HD / 16; ++kk)        // (rows lo, d lo), (hi, lo), (lo, hi), (hi, hi)
+      rt::ldsm_x4(qf[kk], q_s + (qsub * kTcBQ + r8 + (j8 % 2) * 8) * kLd + kk * 16 + (j8 / 2) * 8);
+  }
   float o[HD / 8][4];
 #pragma unroll
   for (int d = 0; d < HD / 8; ++d)
@@ -284,12 +300,24 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
+      if constexpr (L::kQRegs) {
 #pragma unroll
-      for (int nt = 0; nt < kTcBK / 8; nt += 2) {   // B = K^T: two n8 key tiles a load
-        uint32_t kf[4];
-        rt::ldsm_x4(kf, ks + ((nt + j8 / 2) * 8 + r8) * kLd + kk * 16 + (j8 % 2) * 8);
-        rt::mma_bf16_16816(sc[nt], qf[kk], kf);
-        rt::mma_bf16_16816(sc[nt + 1], qf[kk], kf + 2);
+        for (int nt = 0; nt < kTcBK / 8; nt += 2) {   // B = K^T: two n8 key tiles a load
+          uint32_t kf[4];
+          rt::ldsm_x4(kf, ks + ((nt + j8 / 2) * 8 + r8) * kLd + kk * 16 + (j8 % 2) * 8);
+          rt::mma_bf16_16816(sc[nt], qf[kk], kf);
+          rt::mma_bf16_16816(sc[nt + 1], qf[kk], kf + 2);
+        }
+      } else {                                  // Q's fragment kk from shared memory
+        uint32_t qk[4];
+        rt::ldsm_x4(qk, q_s + (qsub * kTcBQ + r8 + (j8 % 2) * 8) * kLd + kk * 16 + (j8 / 2) * 8);
+#pragma unroll
+        for (int nt = 0; nt < kTcBK / 8; nt += 2) {
+          uint32_t kf[4];
+          rt::ldsm_x4(kf, ks + ((nt + j8 / 2) * 8 + r8) * kLd + kk * 16 + (j8 % 2) * 8);
+          rt::mma_bf16_16816(sc[nt], qk, kf);
+          rt::mma_bf16_16816(sc[nt + 1], qk, kf + 2);
+        }
       }
     }
 
@@ -448,8 +476,9 @@ int tc_tiles(int q0, int rows, int S, int causal, int window) {
 // all). Two q tiles a block (QW = 2) halve the blocks, so a grid too large
 // for more splits with one may take them with two, and each K/V tile is read
 // once for both. The shape with the shortest chain wins; one q tile a block
-// on a tie, for the larger grid.
-int tc_shape(int S, int H, int B, int causal, int window, int* qw) {
+// on a tie, for the larger grid. max_nw: the most splits the head dim's
+// shared memory allows (tc_max_nw).
+int tc_shape(int S, int H, int B, int causal, int window, int max_nw, int* qw) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -465,7 +494,7 @@ int tc_shape(int S, int H, int B, int causal, int window, int* qw) {
                           tc_tiles((S - 1) / rows * rows, rows, S, causal, window));
     const int blocks = (S + rows - 1) / rows * H * B;
     int nw = 1;
-    for (int n = 4; n > 1 && nw == 1; n /= 2)
+    for (int n = max_nw; n > 1 && nw == 1; n /= 2)
       if (n <= tiles && blocks * n <= 4 * sms) nw = n;
     const int chain = (tiles + nw - 1) / nw;
     if (qs == 1 || chain < best_chain) {
@@ -483,11 +512,12 @@ int launch_tc_shape(const void* q, const void* k, const void* v, void* out, int 
                     int64_t skh, int64_t svb, int64_t svs, int64_t svh, int causal, int window,
                     float scale, cudaStream_t st) {
   int qw = 1;
-  const int nw = tc_shape(S, H, B, causal, window, &qw);
+  const int nw = tc_shape(S, H, B, causal, window, tc_max_nw<HD>(), &qw);
 #define RT_FLASH_TC(QW, NW)                                                                  \
-  if (qw == QW && nw == NW)                                                                  \
-    return launch_tc<HD, QW, NW>(q, k, v, out, B, S, H, KV, sqb, sqs, sqh, skb, sks, skh,    \
-                                 svb, svs, svh, causal, window, scale, st);
+  if constexpr (TcFlash<HD, QW, NW>::kFits)                                                  \
+    if (qw == QW && nw == NW)                                                                \
+      return launch_tc<HD, QW, NW>(q, k, v, out, B, S, H, KV, sqb, sqs, sqh, skb, sks, skh,  \
+                                   svb, svs, svh, causal, window, scale, st);
   RT_FLASH_TC(1, 1)
   RT_FLASH_TC(1, 2)
   RT_FLASH_TC(1, 4)
@@ -514,7 +544,10 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out, 
     RT_FLASH_CASE(16)
     RT_FLASH_CASE(32)
     RT_FLASH_CASE(64)
+    RT_FLASH_CASE(80)
+    RT_FLASH_CASE(96)
     RT_FLASH_CASE(128)
+    RT_FLASH_CASE(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

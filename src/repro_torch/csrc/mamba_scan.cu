@@ -8,125 +8,259 @@
 // Replaces the TPU kernel repro/kernels/mamba_scan.py::_mamba_kernel. The TPU
 // grid is (batch, DI blocks, sequence chunks) with the chunk axis sequential
 // and h carried across it in VMEM scratch. Blocks on the card run in no
-// order, so nothing is carried between blocks: one block owns its channels
-// for the whole sequence and loops over t itself. The TPU kernel starts from
+// order, so nothing is carried between blocks: one block owns 64 channels for
+// the whole sequence and loops over t itself. The TPU kernel starts from
 // h = 0 and drops the final state; prefill needs it for the decode cache, so
 // this one takes h0 and writes h_S.
 //
-// Mapping: one thread per (channel, state), N threads to a channel, so a
-// 128-thread block holds 128 / N channels (8 at N = 16) and the grid is
-// (DI / channels, Bt): 1024 blocks at the serving shape Bt1 DI8192 N16, where
-// one thread per channel would give 64 blocks for 132 SMs. Each thread keeps
-// its h and A in registers; y_t is an xor-shuffle sum over the N lanes of a
-// channel. dt, x, B and C of a chunk of time steps are staged in shared
-// memory by loads with neighbouring channels on neighbouring addresses, and
-// y of the chunk is written back the same way.
+// Bound: it reads dt, x, B, C, A, h0 once and writes y and h_S once (4.7 MB,
+// 1.4 us at the serving shape Bt1 S32 DI8192 N16 in float32), and takes one
+// exponential per (t, channel, state): 33.5 M at S256, which the SFUs (16 a
+// clock per SM) need about 8 us for. Its floor is the SFUs at long prompts
+// and the latency of its sequential loop over t at short ones; PERF.md has
+// how far above it runs.
 //
-// Bound: it reads dt, x, B, C, A, h0 once and writes y and h_S once, and does
-// about 10 float32 operations per (t, channel, state): bound by bytes (4.7 MB
-// and 1.4 us at the serving shape in float32), and in practice by the
-// latency of its sequential loop over S. expf, not __expf, keeps float32 next
-// to the plain version. For bfloat16 inputs dt*x is rounded to bfloat16 before
-// the product with B, as the plain version and the JAX oracle compute it.
+// Design. One block of 256 threads per 64 channels; one thread per (channel,
+// N/4 states): the thread keeps its states and A (scaled by log2 e once, so
+// each exponential is one ex2.approx) in registers, and its N/4 states are
+// independent chains; y takes two shuffles a step. (With 1 or 2 threads a
+// channel, fewer shuffles and longer chains, falcon_mamba_7b's prefill ran
+// slower at every bucket on the H100: PERF.md.) Steps go in groups whose loads, exponentials and shuffles
+// are independent of each other, only h carrying from step to step. dt and
+// x of a chunk of time steps for the block's contiguous channels, and B and
+// C (shared by the whole block, read as broadcast vectors), arrive in shared
+// memory by 16-byte cp.async, double-buffered: chunk k+1 is in flight while
+// chunk k is scanned. Inputs that are not 16-byte aligned along channels
+// (strided views) are staged by plain loads instead. y of a step takes x's
+// place in shared memory, and a chunk's y goes out in 16-byte stores once the
+// chunk is done. For bfloat16 inputs dt*x is rounded to bfloat16 before the
+// product with B, as the plain version and the JAX oracle compute it.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kChunk = 32;   // time steps staged in shared memory at once
+constexpr int kCh = 64;                     // channels of a block
+constexpr int kP = 4;                       // threads of a channel
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return rt::to_float(rt::from_float<T>(v));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// n values of T from shared memory as float32, 16 bytes a load where n fills them
+template <typename T, int n> __device__ __forceinline__ void load_row(const T* src, float* dst) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  if constexpr (n % kVec == 0) {
+#pragma unroll
+    for (int j = 0; j < n / kVec; ++j)
+      rt::Cvt<T>::unpack(reinterpret_cast<const uint4*>(src)[j], dst + j * kVec);
+  } else {
+#pragma unroll
+    for (int i = 0; i < n; ++i) dst[i] = rt::to_float(src[i]);
+  }
 }
 
 template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCh * kP)
 mamba_scan_kernel(const T* __restrict__ dt, const T* __restrict__ x, const T* __restrict__ Bm,
                   const T* __restrict__ Cm, const float* __restrict__ A,
                   const float* __restrict__ D, const float* __restrict__ h0, T* __restrict__ y,
                   float* __restrict__ hS, int S, int DI, int64_t sdb, int64_t sdt, int64_t sdd,
                   int64_t sxb, int64_t sxt, int64_t sxd, int64_t sBb, int64_t sBt, int64_t sBn,
-                  int64_t sCb, int64_t sCt, int64_t sCn) {
-  constexpr int CPB = kThreads / N;  // channels per block
-  __shared__ float s_dt[kChunk][CPB];
-  __shared__ float s_dx[kChunk][CPB];  // dt*x, rounded to T
-  __shared__ float s_x[kChunk][CPB];
-  __shared__ float s_y[kChunk][CPB];
-  __shared__ float s_B[kChunk][N];
-  __shared__ float s_C[kChunk][N];
+                  int64_t sCb, int64_t sCt, int64_t sCn, int vec_dx, int vec_bc) {
+  constexpr int NP = N / kP;                // states of a thread
+  constexpr int TC = N == 32 ? 16 : 32;     // time steps of a chunk
+  constexpr int SG = NP >= 16 ? 32 / NP : NP == 8 ? 4 : 8;   // steps of a group, TC % SG == 0
+  constexpr int kThreads = kCh * kP;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  __shared__ __align__(16) T s_dt[2][TC][kCh];
+  __shared__ __align__(16) T s_x[2][TC][kCh];
+  __shared__ __align__(16) T s_B[2][TC][N];
+  __shared__ __align__(16) T s_C[2][TC][N];
 
   const int b = blockIdx.y;
-  const int d0 = blockIdx.x * CPB;
+  const int d0 = blockIdx.x * kCh;
   const int tid = threadIdx.x;
-  const int c = tid / N;
-  const int n = tid % N;
+  const int c = tid / kP;
+  const int n0 = tid % kP * NP;
   const int d = d0 + c;
   const bool live = d < DI;
-  const int64_t hidx = (static_cast<int64_t>(b) * DI + d) * N + n;
-
-  const float a = live ? A[static_cast<int64_t>(d) * N + n] : 0.f;
-  const float Dd = live ? D[d] : 0.f;
-  float h = (live && h0 != nullptr) ? h0[hidx] : 0.f;
+  const int64_t hidx = (static_cast<int64_t>(b) * DI + d) * N + n0;
 
   const T* dtb = dt + b * sdb;
   const T* xb = x + b * sxb;
   const T* Bb = Bm + b * sBb;
   const T* Cb = Cm + b * sCb;
   T* yb = y + static_cast<int64_t>(b) * S * DI;
+  const T zero = rt::from_float<T>(0.f);
 
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    const int len = min(kChunk, S - t0);
-    for (int e = tid; e < len * CPB; e += kThreads) {
-      const int t = e / CPB;
-      const int cc = e % CPB;
-      const int dd = d0 + cc;
-      float dtv = 0.f, xv = 0.f;
-      if (dd < DI) {
-        dtv = rt::to_float(dtb[(t0 + t) * sdt + dd * sdd]);
-        xv = rt::to_float(xb[(t0 + t) * sxt + dd * sxd]);
-      }
-      s_dt[t][cc] = dtv;
-      s_x[t][cc] = xv;
-      s_dx[t][cc] = round_to<T>(dtv * xv);
-    }
-    for (int e = tid; e < len * N; e += kThreads) {
-      const int t = e / N;
-      const int nn = e % N;
-      s_B[t][nn] = rt::to_float(Bb[(t0 + t) * sBt + nn * sBn]);
-      s_C[t][nn] = rt::to_float(Cb[(t0 + t) * sCt + nn * sCn]);
-    }
-    __syncthreads();
+  // dt and x move in 16-byte pieces (kVec channels of one time step); thread
+  // tid owns pieces tid, tid + kThreads, ... of every chunk, for staging and
+  // for writing y back from s_x, so no other thread touches them between
+  constexpr int kPieces = TC * kCh / kVec;
+  constexpr int kMine = (kPieces + kThreads - 1) / kThreads;
+  const bool vec_y = DI % kVec == 0;
 
-    for (int t = 0; t < len; ++t) {
-      h = expf(s_dt[t][c] * a) * h + s_dx[t][c] * s_B[t][n];
-      float p = h * s_C[t][n];
+  // chunk k of dt, x, B, C into buffer buf; rows past S and channels past DI
+  // are zero-filled (a row past S is an identity step of the scan)
+  auto stage = [&](int k, int buf) {
+    const int t0 = k * TC;
 #pragma unroll
-      for (int off = N / 2; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off, N);
-      if (n == 0) s_y[t][c] = p + Dd * s_x[t][c];
+    for (int m = 0; m < kMine; ++m) {
+      const int piece = tid + m * kThreads;
+      if (kPieces % kThreads != 0 && piece >= kPieces) break;
+      const int r = piece / (kCh / kVec), cc = piece % (kCh / kVec) * kVec;
+      const int t = t0 + r;
+      if (vec_dx) {
+        const bool in = t < S && d0 + cc < DI;
+        const int64_t ts = min(t, S - 1), ds = min(d0 + cc, DI - kVec);
+        rt::cp_async16(&s_dt[buf][r][cc], dtb + ts * sdt + ds, in);
+        rt::cp_async16(&s_x[buf][r][cc], xb + ts * sxt + ds, in);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const bool in = t < S && d0 + cc + e < DI;
+          s_dt[buf][r][cc + e] = in ? dtb[t * sdt + (d0 + cc + e) * sdd] : zero;
+          s_x[buf][r][cc + e] = in ? xb[t * sxt + (d0 + cc + e) * sxd] : zero;
+        }
+      }
     }
-    __syncthreads();
+    if constexpr (N % kVec == 0) {
+      if (vec_bc) {
+        constexpr int kBC = N / kVec;
+        for (int i = tid; i < 2 * TC * kBC; i += kThreads) {
+          const int r = i / kBC % TC, nn = i % kBC * kVec;
+          const int t = t0 + r;
+          const int64_t ts = min(t, S - 1);
+          if (i < TC * kBC)
+            rt::cp_async16(&s_B[buf][r][nn], Bb + ts * sBt + nn, t < S);
+          else
+            rt::cp_async16(&s_C[buf][r][nn], Cb + ts * sCt + nn, t < S);
+        }
+        rt::cp_async_commit();
+        return;
+      }
+    }
+    for (int i = tid; i < TC * N; i += kThreads) {
+      const int r = i / N, nn = i % N;
+      const int t = t0 + r;
+      s_B[buf][r][nn] = t < S ? Bb[t * sBt + nn * sBn] : zero;
+      s_C[buf][r][nn] = t < S ? Cb[t * sCt + nn * sCn] : zero;
+    }
+    rt::cp_async_commit();
+  };
+  // y of chunk k, which the scan left in s_x[buf], to global memory: this
+  // thread's pieces, 16 bytes a store where the row allows it
+  auto write_y = [&](int k, int buf) {
+    const int t0 = k * TC;
+#pragma unroll
+    for (int m = 0; m < kMine; ++m) {
+      const int piece = tid + m * kThreads;
+      if (kPieces % kThreads != 0 && piece >= kPieces) break;
+      const int r = piece / (kCh / kVec), cc = piece % (kCh / kVec) * kVec;
+      const int t = t0 + r;
+      if (t >= S) continue;
+      T* dst = yb + static_cast<int64_t>(t) * DI + d0 + cc;
+      if (vec_y && d0 + cc < DI) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(&s_x[buf][r][cc]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          if (d0 + cc + e < DI) dst[e] = s_x[buf][r][cc + e];
+      }
+    }
+  };
 
-    for (int e = tid; e < len * CPB; e += kThreads) {
-      const int t = e / CPB;
-      const int dd = d0 + e % CPB;
-      if (dd < DI) yb[static_cast<int64_t>(t0 + t) * DI + dd] = rt::from_float<T>(s_y[t][e % CPB]);
-    }
-    // the next chunk's staging writes no buffer read above, and its barrier
-    // orders these reads of s_y before the next writes to it
+  const int nchunks = (S + TC - 1) / TC;
+  stage(0, 0);
+  float a2[NP], h[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    a2[i] = live ? A[static_cast<int64_t>(d) * N + n0 + i] * kLog2e : 0.f;
+    h[i] = (live && h0 != nullptr) ? h0[hidx + i] : 0.f;
   }
-  if (live) hS[hidx] = h;
+  const float Dd = live ? D[d] : 0.f;
+
+  for (int k = 0; k < nchunks; ++k) {
+    const int buf = k & 1;
+    rt::cp_async_wait<0>();                 // chunk k has landed for this thread ...
+    __syncthreads();                        // ... for all; chunk k-1's buffer is free
+    if (k > 0) write_y(k - 1, buf ^ 1);     // before its pieces take chunk k+1
+    if (k + 1 < nchunks) stage(k + 1, buf ^ 1);
+    // SG steps at a time: their loads, exponentials and y shuffles are
+    // independent, only h carries from step to step. Rows of the chunk past
+    // S are zeros: exp(0) = 1 and dt*x = 0 leave h as it is.
+    for (int r0 = 0; r0 < min(TC, S - k * TC); r0 += SG) {
+      float xv[SG], e[SG][NP], bx[SG][NP], cv[SG][NP], yv[SG];
+#pragma unroll
+      for (int j = 0; j < SG; ++j) {
+        const float dtv = rt::to_float(s_dt[buf][r0 + j][c]);
+        xv[j] = rt::to_float(s_x[buf][r0 + j][c]);
+        const float dx = rt::round_to<T>(dtv * xv[j]);
+        float bv[NP];
+        load_row<T, NP>(&s_B[buf][r0 + j][n0], bv);
+        load_row<T, NP>(&s_C[buf][r0 + j][n0], cv[j]);
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          e[j][i] = ex2(dtv * a2[i]);
+          bx[j][i] = dx * bv[i];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < SG; ++j) {
+        float y0 = 0.f, y1 = 0.f;           // two partial sums, for ILP
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          h[i] = fmaf(e[j][i], h[i], bx[j][i]);
+          if (i % 2 == 0) y0 = fmaf(h[i], cv[j][i], y0);
+          else y1 = fmaf(h[i], cv[j][i], y1);
+        }
+        yv[j] = y0 + y1;
+      }
+#pragma unroll
+      for (int off = kP / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int j = 0; j < SG; ++j) yv[j] += __shfl_xor_sync(0xffffffffu, yv[j], off, kP);
+      // y takes x's place in s_x: every lane of the channel has read x (the
+      // shuffle waited for their sums, which need it)
+      if (n0 == 0) {
+#pragma unroll
+        for (int j = 0; j < SG; ++j) s_x[buf][r0 + j][c] = rt::from_float<T>(fmaf(Dd, xv[j], yv[j]));
+      }
+    }
+  }
+  __syncthreads();
+  write_y(nchunks - 1, (nchunks - 1) & 1);
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) hS[hidx + i] = h[i];
+  }
+}
+
+// dt and x can take 16-byte copies along channels: unit stride there, and
+// every row and the base 16-byte aligned
+bool vectorizable(const void* p, int64_t sb, int64_t st, int64_t sc, int elem, int width) {
+  const int vec = 16 / elem;
+  return sc == 1 && reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % vec == 0 &&
+         st % vec == 0 && width % vec == 0;
 }
 
 template <typename T, int N>
 int launch(const void* dt, const void* x, const void* Bm, const void* Cm, const float* A,
            const float* D, const float* h0, void* y, float* hS, int Bt, int S, int DI,
            const int64_t* st, cudaStream_t stream) {
-  constexpr int CPB = kThreads / N;
-  const dim3 grid((DI + CPB - 1) / CPB, Bt);
-  mamba_scan_kernel<T, N><<<grid, kThreads, 0, stream>>>(
+  const int e = static_cast<int>(sizeof(T));
+  const int vec_dx = vectorizable(dt, st[0], st[1], st[2], e, DI) &&
+                     vectorizable(x, st[3], st[4], st[5], e, DI);
+  const int vec_bc = vectorizable(Bm, st[6], st[7], st[8], e, N) &&
+                     vectorizable(Cm, st[9], st[10], st[11], e, N);
+  const dim3 grid((DI + kCh - 1) / kCh, Bt);
+  mamba_scan_kernel<T, N><<<grid, kCh * kP, 0, stream>>>(
       static_cast<const T*>(dt), static_cast<const T*>(x), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), A, D, h0, static_cast<T*>(y), hS, S, DI, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], vec_dx, vec_bc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,13 +6,19 @@ linear or ring KV cache, the G query heads of a kv head together, with a
 per-sequence ``valid_len`` = ``min(pos + 1, W)`` (a ring cache: ``W`` once
 ``pos >= W``) past which cache blocks are skipped.
 
-The kernel is ``csrc/decode_attention.cu``, flash-decoding in two launches:
-partial softmaxes over chunks of W, then a combine per (b, h). The TPU grid
-of ``B*KV`` programs would leave most of the card's 132 SMs idle, so the
-split is what fills them. It reads the cache once and is bound by bytes (by
-launch latency at the serving widths). It takes float32 and bfloat16, the
-public ``[B, H, hd]`` / ``[B, W, KV, hd]`` layout with strides (a layer's
-slice of the stacked cache needs no copy) and hd in {16, 32, 64, 128}.
+The kernel is ``csrc/decode_attention.cu``: one block of 8 warps per
+(b, kv head, up to 8 of its query heads) reads the cache straight from
+global memory in 16-byte vectors, its warps on interleaved keys, the q rows
+sharing each K/V load, and merges its warps' online softmaxes in shared
+memory. :func:`decode_route` picks the route on the host: one launch over
+all of ``[0, valid_len)`` at the serving shapes, where the call is bound by
+latency; for long caches, where one block per (b, kv head) would walk too
+many keys, flash-decoding in two launches (partial softmaxes over chunks of
+W, :func:`split_chunk` keys each, then a combine per (b, h)). It takes
+float32 and bfloat16, the public ``[B, H, hd]`` / ``[B, W, KV, hd]`` layout
+with strides (a layer's slice of the stacked cache needs no copy), 16-byte
+aligned rows and every head dim of the JAX package's configs
+(:data:`HEAD_DIMS`).
 
 :func:`decode_attention_plain` is the JAX package's ``attend_decode`` with
 ``impl="ref"`` in plain PyTorch: the CPU path and the kernel's yardstick of
@@ -22,6 +28,7 @@ launches in ``decode_attention.launches``.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -29,9 +36,12 @@ from repro_torch.device import check_capability
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132                  # H100 SXM streaming multiprocessors
+WARPS = 8                  # warps of a block (csrc/decode_attention.cu kWarps; a card test
+                           # holds WARPS * keys_per_step to the kernel's own)
+MAX_STEPS = 16             # key steps a warp may walk on the one-launch route
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -61,6 +71,25 @@ def split_chunk(B: int, KV: int, W: int) -> int:
     while chunk > 16 and B * KV * -(-W // chunk) < 2 * SMS:
         chunk //= 2
     return chunk
+
+
+def keys_per_step(hd: int, itemsize: int) -> int:
+    """Keys a warp reads at once: a row's 16-byte vectors take a power of two
+    of its 32 lanes (all 32 past 32 vectors)."""
+    lanes = 1
+    while lanes < min(32, hd * itemsize // 16):
+        lanes *= 2
+    return 32 // lanes
+
+
+def decode_route(B: int, KV: int, W: int, hd: int, itemsize: int) -> Tuple[str, int]:
+    """The kernel's route and the keys a block takes: ``("one launch", W)``
+    while one block per (b, kv head) walks at most :data:`MAX_STEPS` steps of
+    each warp over the cache; past that ``("split", split_chunk(B, KV, W))``,
+    a second launch combining the chunks."""
+    if -(-W // (WARPS * keys_per_step(hd, itemsize))) <= MAX_STEPS:
+        return "one launch", W
+    return "split", split_chunk(B, KV, W)
 
 
 _FN = None
@@ -102,6 +131,10 @@ def _check(q, k_cache, v_cache, positions):
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if q.stride(2) != 1 or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError("the head dimension of q and the caches must be contiguous")
+    vec = 16 // q.element_size()       # the kernel's 16-byte loads
+    if any(t.data_ptr() % 16 or any(st % vec for st in t.stride()[:-1])
+           for t in (q, k_cache, v_cache)):
+        raise ValueError("q and the caches must be 16-byte aligned, rows included")
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -113,15 +146,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     B, W, KV, hd = k_cache.shape
     H = q.shape[1]
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    chunk = split_chunk(B, KV, W)
-    nsplit = -(-W // chunk)
-    part_acc = torch.empty(B * H * nsplit * hd, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(B * H * nsplit * 2, dtype=torch.float32, device=q.device)
-    pos = positions.to(torch.int32).contiguous()
+    route, chunk = decode_route(B, KV, W, hd, q.element_size())
+    part_acc = part_ml = None
+    if route == "split":
+        nsplit = -(-W // chunk)
+        part_acc = torch.empty(B * H * nsplit * hd, dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(B * H * nsplit * 2, dtype=torch.float32, device=q.device)
+    pos = positions if positions.dtype == torch.int32 else positions.to(torch.int32)
+    pos = pos.contiguous()
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
             _DTYPES[q.dtype], B, W, H, KV, hd, chunk,
             q.stride(0), q.stride(1),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),

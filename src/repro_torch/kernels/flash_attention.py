@@ -7,11 +7,12 @@ scores at the finite ``-1e30`` and ``l`` clamped at ``1e-30``.
 
 The kernel is ``csrc/flash_attention.cu``, looping in each block only over
 the kv tiles the mask lets through. It takes the public ``[B, S, H, hd]`` /
-``[B, S, KV, hd]`` layout with strides, hd in {16, 32, 64, 128}, and masks
-its own ragged edges. At the serving shapes (S <= 256) it is bound by
-latency, not by HBM bytes: how many SMs its blocks occupy and how long each
-block's chain of loads and arithmetic is (see the note in the source). The
-route follows the type (:data:`ROUTES`):
+``[B, S, KV, hd]`` layout with strides, every head dim of the JAX package's
+configs (:data:`HEAD_DIMS`), and masks its own ragged edges. At the
+serving shapes (S <= 256) it is bound by latency, not by HBM bytes: how
+many SMs its blocks occupy and how long each block's chain of loads and
+arithmetic is (see the note in the source). The route follows the type
+(:data:`ROUTES`):
 
 - bfloat16, the serving path: 16 query rows per warp, QK^T and PV on the
   tensor cores (``mma.sync``, float32 sums, P rounded to bf16), K/V tiles
@@ -37,7 +38,7 @@ from repro_torch.device import check_capability
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's route for each type it takes (csrc/flash_attention.cu dispatches on it)
 ROUTES = {torch.float32: "float32 FMA", torch.bfloat16: "bf16 tensor cores (mma.sync)"}

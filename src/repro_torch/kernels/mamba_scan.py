@@ -11,13 +11,16 @@ Beyond the TPU kernel, which starts from zeros and drops the final state,
 it takes ``h0`` ``[Bt, DI, N]`` (zeros when ``None``) and returns ``h_S``:
 prefill hands that state to decode.
 
-The kernel is ``csrc/mamba_scan.cu``: one thread per (channel, state), a
-loop over t inside the block, the state in registers and y an xor-shuffle
-sum over the N lanes of a channel. It is bound by bytes (dt, x, y and the
-state are each touched once) and, at the serving widths, by the latency of
-its sequential loop. It takes float32 and bfloat16 dt/x/B/C of one type
-through their strides (B and C may be column slices of one projection),
-N in {4, 8, 16, 32}, and float32 A, D and state.
+The kernel is ``csrc/mamba_scan.cu``: one block per 64 channels loops over
+t, one thread per (channel, N/4 states) with the states in registers, each
+exponential one ``ex2`` of ``dt * (A log2 e)``, and y a sum over the 4
+threads of a channel. dt, x, B and C arrive by double-buffered 16-byte
+``cp.async`` copies where their layout allows, so the next chunk of time
+steps loads while one is scanned, and y leaves a chunk at a time in
+16-byte stores. Its floor is the SFUs' exponentials at long prompts and
+the latency of its sequential loop at short ones. It takes float32 and
+bfloat16 dt/x/B/C of one type through their strides (B and C may be column
+slices of one projection), N in {4, 8, 16, 32}, and float32 A, D and state.
 
 :func:`mamba_scan_plain` is the JAX package's sequential oracle
 (``kernels/ref.py::mamba_scan_ref``) in plain PyTorch, with ``h0``/``h_S``

@@ -367,3 +367,147 @@ def test_flash_bf16_block_shapes_match_plain(card, B, S, H, KV, hd, causal, wind
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
     ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
+    (1, 100, 16, 16, 80, False, 0),      # hubert_xlarge: bidirectional
+    (1, 77, 32, 32, 96, True, 0),        # phi3_vision
+    (1, 256, 16, 8, 256, True, 0),       # gemma3_12b, global layers
+    (1, 1100, 16, 8, 256, True, 1024),   # gemma3_12b, local layers: window 1024 at S past it
+])
+def test_flash_kernel_matches_plain_at_the_configs_head_dims(card, B, S, H, KV, hd, causal,
+                                                             window, dtype):
+    """Both routes of B1 at the head dims of hubert_xlarge, phi3_vision and
+    gemma3_12b (at hd 256 the bf16 route takes at most 2 kv splits)."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=card).manual_seed(S + hd)
+    q = _randn(gen, (B, S, H, hd), dtype, card)
+    k = _randn(gen, (B, S, KV, hd), dtype, card)
+    v = _randn(gen, (B, S, KV, hd), dtype, card)
+    n = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,H,KV,hd,ring,route", [
+    (2, 64, 16, 16, 80, False, "one launch"),   # hubert_xlarge's heads
+    (2, 64, 32, 32, 96, True, "one launch"),    # phi3_vision
+    (2, 64, 16, 8, 256, False, "one launch"),   # gemma3_12b
+    (2, 1024, 16, 8, 256, True, "split"),       # gemma3_12b's local ring of 1024
+    (1, 1024, 16, 16, 80, False, "split"),
+    (2, 600, 32, 32, 96, False, "split"),
+    (2, 64, 56, 8, 128, False, "one launch"),   # G = 7 (deepseek_coder_33b): one padded group
+    (1, 300, 96, 8, 128, True, "split"),        # G = 12 (mistral_large_123b): two groups
+])
+def test_decode_kernel_matches_plain_on_both_routes(card, B, W, H, KV, hd, ring, route, dtype):
+    from repro_torch.kernels import decode_attention as dec
+    assert dec.decode_route(B, KV, W, hd, dtype.itemsize)[0] == route
+    gen = torch.Generator(device=card).manual_seed(W + hd)
+    q = _randn(gen, (B, H, hd), dtype, card)
+    cache = _randn(gen, (2, B, W, KV, hd), dtype, card)   # a stacked cache
+    pos = np.random.default_rng(W + H).integers(0, 2 * W if ring else W + 8, B)
+    pos[0] = W - 1                                        # one sequence fills the cache
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=card)
+    n = dec.decode_attention.launches
+    out = dec.decode_attention(q, cache[0], cache[1], pos, ring=ring)
+    torch.cuda.synchronize()
+    assert dec.decode_attention.launches == n + 1
+    ref = dec.decode_attention_plain(q, cache[0], cache[1], pos, ring=ring)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_route_counts_the_keys_the_kernel_steps_over(card, dtype):
+    """decode_route's keys per block step (WARPS * keys_per_step) are the
+    compiled kernel's own, at every head dim it takes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as dec
+    fn = build.load("decode_attention").decode_keys_per_block_step
+    for hd in dec.HEAD_DIMS:
+        assert (fn(dec._DTYPES[dtype], hd)
+                == dec.WARPS * dec.keys_per_step(hd, dtype.itemsize)), hd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("Bt,S,DI,N", [
+    (1, 16, 8192, 16),                 # falcon_mamba_7b's prefill buckets
+    (1, 32, 8192, 16),
+    (1, 64, 8192, 16),
+    (1, 256, 8192, 16),
+    (2, 128, 64, 8),                   # the JAX sweep (tests/test_kernels.py:63-67)
+    (1, 64, 128, 16),
+    (2, 96, 32, 4),
+    (3, 33, 8192, 8),                  # 384 blocks: about three a SM
+    (5, 20, 8192, 32),                 # 640 blocks: about five a SM
+])
+def test_mamba_scan_kernel_matches_plain_at_the_serving_shapes(card, Bt, S, DI, N, with_h0,
+                                                               dtype):
+    """B3 from and to a carried state, through 16-byte copies (dt, x; B and C
+    are column slices of one projection, as mamba_forward's split leaves
+    them)."""
+    from repro_torch.kernels import mamba_scan as ms
+    gen = torch.Generator(device=card).manual_seed(S + DI + N)
+    dt = (torch.nn.functional.softplus(torch.randn(Bt, S, DI, generator=gen, device=card))
+          * 0.1).to(dtype)
+    x = _randn(gen, (Bt, S, DI), dtype, card)
+    proj = _randn(gen, (Bt, S, 8 + 2 * N), dtype, card)
+    Bc, Cc = proj[..., 8:8 + N], proj[..., 8 + N:]
+    A = -torch.exp(0.2 * torch.randn(DI, N, generator=gen, device=card))
+    D = torch.randn(DI, generator=gen, device=card)
+    h0 = torch.randn(Bt, DI, N, generator=gen, device=card) if with_h0 else None
+    ry, rh = ms.mamba_scan_plain(dt, x, Bc, Cc, A, D, h0)
+    tol = SCAN_TOL[dtype]
+    n = ms.mamba_scan.launches
+    y, h = ms.mamba_scan(dt, x, Bc, Cc, A, D, h0)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == n + 1
+    torch.testing.assert_close(y.float(), ry.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, rh, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hd", [96, 256])
+def test_lm_on_the_card_matches_the_cpu_at_wide_head_dims(card, hd):
+    """The port's LM from a reduced demo config with head_dim 96 or 256, f32:
+    a prefill and 4 decode steps through B1/B2 on the card against the same
+    weights on the CPU (plain versions), logits within 2e-3, greedy tokens
+    equal."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import LM
+
+    cfg = replace(reduced(get_config("tiny_lm")), head_dim=hd, dtype="float32")
+    B, S0, W = 2, 16, 32
+    gpu = LM(cfg, device="cuda", seed=5)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    toks = np.random.default_rng(hd).integers(0, cfg.vocab_size, (B, S0)).astype(np.int32)
+    caches, logits = {}, {}
+    fa.flash_attention.launches = dec.decode_attention.launches = 0
+    for name, lm in (("gpu", gpu), ("cpu", cpu)):
+        lg, pc = lm.prefill({"tokens": torch.as_tensor(toks, device=lm.device)})
+        cache = lm.init_cache(B, W)
+        for cs, ps in zip(cache["slots"], pc["slots"]):
+            for n in cs:
+                cs[n][:, :, :ps[n].shape[2]] = ps[n]
+        caches[name], logits[name] = cache, lg
+    for t in range(S0, S0 + 5):
+        g, c = logits["gpu"].float().cpu(), logits["cpu"]
+        torch.testing.assert_close(g, c, rtol=2e-3, atol=2e-3)
+        assert torch.equal(g.argmax(-1), c.argmax(-1))
+        if t == S0 + 4:
+            break
+        for name, lm in (("gpu", gpu), ("cpu", cpu)):
+            batch = {"token": c.argmax(-1).to(torch.int32).to(lm.device),
+                     "pos": torch.full((B,), t, dtype=torch.int32, device=lm.device)}
+            logits[name], caches[name] = lm.decode_step(caches[name], batch)
+    assert fa.flash_attention.launches == cfg.num_layers
+    assert dec.decode_attention.launches == 4 * cfg.num_layers

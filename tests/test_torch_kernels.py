@@ -15,7 +15,9 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash  # noq
 from repro_torch.bridge import tensor_from_numpy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.kernels.decode_attention import split_chunk  # noqa: E402
+from repro_torch.kernels import decode_attention as tdec  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_route, split_chunk  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
@@ -38,6 +40,9 @@ def _close(got, want, dtype):
     (1, 32, 2, 2, 16, False, 0),
     (2, 64, 4, 1, 16, True, 20),
     (1, 48, 2, 1, 16, True, 0),
+    (1, 32, 4, 4, 80, False, 0),       # hubert_xlarge's head dim, bidirectional
+    (1, 32, 4, 4, 96, True, 0),        # phi3_vision's
+    (1, 48, 4, 2, 256, True, 16),      # gemma3_12b's, with a window
 ])
 def test_flash_plain_matches_pallas_and_oracle(B, S, H, KV, hd, causal, window, dtype):
     rng = np.random.default_rng(B * S + H + hd)
@@ -60,6 +65,9 @@ def test_flash_plain_matches_pallas_and_oracle(B, S, H, KV, hd, causal, window, 
     (2, 64, 8, 2, 32, False),
     (3, 32, 4, 4, 16, True),
     (1, 128, 8, 2, 64, False),
+    (2, 32, 4, 4, 80, False),
+    (2, 48, 4, 4, 96, True),
+    (2, 64, 4, 2, 256, True),
 ])
 def test_decode_plain_matches_pallas_and_oracle(B, W, H, KV, hd, ring, dtype):
     rng = np.random.default_rng(B * W + H + hd)
@@ -99,6 +107,34 @@ def test_decode_plain_masks_past_valid_len():
 ])
 def test_decode_split_fills_the_card(B, KV, W, chunk):
     assert split_chunk(B, KV, W) == chunk
+
+
+@pytest.mark.parametrize("kernel", [tflash, tdec], ids=["B1", "B2"])
+def test_attention_kernels_take_every_head_dim_of_the_jax_configs(kernel):
+    """Serving any config of the JAX package's registry reaches B1 and B2 with
+    its head_dim: each must be one the kernel takes."""
+    from repro.configs import get_config, list_configs
+
+    dims = {get_config(n).head_dim for n in list_configs()}
+    assert {80, 96, 256} <= dims
+    assert dims <= set(kernel.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("B,KV,W,hd,itemsize,route", [
+    (4, 4, 64, 32, 2, ("one launch", 64)),      # tiny_lm, 4 slots: the engine's decodes
+    (4, 4, 256, 32, 2, ("one launch", 256)),
+    (2, 8, 256, 64, 2, ("one launch", 256)),    # small_lm, 2 slots
+    (2, 16, 64, 128, 2, ("one launch", 64)),    # moonshot_v1_16b, 2 slots
+    (2, 16, 256, 128, 2, ("one launch", 256)),
+    (2, 16, 256, 128, 4, ("split", 16)),        # ... in float32: rows of 32 lanes
+    (1, 2, 512, 128, 2, ("split", 16)),         # the JAX sweep's W512
+    (2, 8, 64, 256, 2, ("one launch", 64)),     # gemma3_12b's heads
+    (2, 8, 256, 256, 2, ("split", 16)),         # ... its global layers
+    (2, 8, 1024, 256, 2, ("split", 32)),        # ... its local ring of 1024
+    (64, 8, 4096, 64, 2, ("split", 64)),        # a grid that fills the card
+])
+def test_decode_route_is_one_launch_at_the_serving_shapes(B, KV, W, hd, itemsize, route):
+    assert decode_route(B, KV, W, hd, itemsize) == route
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "moe_gmm"])

@@ -85,6 +85,28 @@ def test_mamba_scan_h0_and_final_state_match_chunk_scan(B, S, DI, N, chunk):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+def test_mamba_scan_resumes_from_its_final_state(N, dtype):
+    """A scan cut in two, the first part's h_S the second's h0 (prefill
+    handing its state on), is the scan of the whole, held against the JAX
+    oracle, at every d_state the kernel takes."""
+    from repro_torch.kernels.mamba_scan import STATE_DIMS
+
+    assert N in STATE_DIMS
+    B, S, DI, cut = 2, 24, 32, 13
+    rng = np.random.default_rng(N)
+    ins = _scan_inputs(rng, B, S, DI, N, dtype)
+    tins = [t for _, t in ins]
+    seq = lambda t, sl: t[:, sl] if t.dim() == 3 else t      # dt, x, B, C: [B,S,.]
+    y1, h1 = mamba_scan_plain(*[seq(t, slice(0, cut)) for t in tins])
+    y2, h2 = mamba_scan_plain(*[seq(t, slice(cut, S)) for t in tins], h1)
+    y, h = mamba_scan_plain(*tins)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(h2, h, rtol=1e-6, atol=1e-6)
+    _close(torch.cat([y1, y2], 1).float(), jref.mamba_scan_ref(*[j for j, _ in ins]), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ops_mamba_scan_on_cpu_is_the_plain_version(dtype):
     rng = np.random.default_rng(7)
     tins = [t for _, t in _scan_inputs(rng, 2, 40, 32, 16, dtype)]
