@@ -26,6 +26,15 @@ imports nothing of JAX. Phases, each of which fails the run:
 4. engine: the port's ``Engine`` serves 24 requests of ``tiny_lm`` (c=4) and
    ``small_lm`` (c=2) at full width in bfloat16, and must have launched B1
    and B2;
+4b. emulation (paper Fig. 2, through ``repro_torch.launch.emulate``): the
+   same mix on one port ``Worker``, which must launch B1 and B2; the ridge
+   and MLP worker models fitted to its telemetry on the card and on the CPU
+   (ridge predicted log-latencies within 1e-4, MLP parameters after 20 steps
+   within 1e-5, both ``resid_std`` printed, fits timed); 1024 emulated
+   workers at 5000 requests/s for 4 s from the card-fitted ridge (every
+   request answered, fail rate below 0.05; p50, p99, events and events/s
+   printed); 64 emulated workers at 500 requests/s for 1 s from the MLP,
+   one forward a request on the card and on the CPU (microseconds a call);
 5. engine: the port's ``Engine`` serves 8 requests of ``falcon_mamba_7b``
    (c=2) at full width and depth (64 layers, bfloat16), and must have
    launched B3; cold start split into materialization and warm-up, peak
@@ -68,6 +77,8 @@ SFU_PER_CLOCK = 16                            # ex2 a clock per SM (compute capa
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}     # tests/test_kernels.py:17-19
 SCAN_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # tests/test_kernels.py:78-79
 LOGIT_TOL = 2e-3                              # tests/test_decode_parity.py
+EMU_RIDGE_TOL = 1e-4     # ridge predicted log-latency, card vs CPU (tests/test_torch_emulation.py)
+EMU_MLP_TOL = 1e-5       # MLP parameters after 20 steps, card vs CPU (the same)
 
 # (label, B, S, H, KV, hd, causal, window): the engine's prefills (tiny_lm and
 # small_lm, prompts bucketed to 16/32/64, 256 at the Engine's default max_len)
@@ -673,6 +684,121 @@ def _wrappers():
             "mamba_scan": ms.mamba_scan, "grouped_matmul": moe_gmm.grouped_matmul}
 
 
+def phase_emulation():
+    """Paper Fig. 2 on the card, through ``repro_torch.launch.emulate``: the
+    example's 24 requests on one port ``Worker`` (B1 and B2 counted), the
+    ridge and MLP fits on the card against the CPU on that telemetry, 1024
+    emulated workers from the card-fitted ridge, and 64 from the card-fitted
+    MLP (one forward on the card per request)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.emulation import (EmulatedServiceModel, MLPWorkerModel,
+                                            RidgeWorkerModel, telemetry_matrix)
+    from repro_torch.core.router import build_tree
+    from repro_torch.core.simulator import Simulator, poisson_load, summarize
+    from repro_torch.launch import emulate
+
+    store = emulate.demo_store()
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    recs = emulate.profile_worker(store, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    check(len(recs) == 24, f"{len(recs)} of 24 telemetry rows with a latency")
+    for name in ("flash_attention", "decode_attention"):
+        check(launches[name] > 0, f"the emulation's real worker never launched {name}")
+    print(f"[emulation] step 1: 24 requests on one Worker in {wall:.3f} s, "
+          f"kernel launches {launches}")
+    X, y, ok = telemetry_matrix(recs)
+
+    def fit_ms(fit):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fit()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    ridge, ridge_cold_ms = fit_ms(lambda: RidgeWorkerModel.fit(X, y, ok, device="cuda"))
+    ridge, ridge_ms = fit_ms(lambda: RidgeWorkerModel.fit(X, y, ok, device="cuda"))
+    ridge_cpu = RidgeWorkerModel.fit(X, y, ok, device="cpu")
+    xs = np.concatenate([(X - ridge.mu) / ridge.sd, np.ones((len(X), 1), np.float32)], 1)
+    err = float(np.abs(xs @ ridge.w - xs @ ridge_cpu.w).max())
+    check(err <= EMU_RIDGE_TOL, f"ridge log-latency card vs CPU: max_abs_err {err:.3e}")
+    print(f"[emulation] step 2 ridge ({X.shape[0]} rows x {X.shape[1]} features): "
+          f"resid_std card {ridge.resid_std:.6f} CPU {ridge_cpu.resid_std:.6f}; "
+          f"predicted log-latency max_abs_err {err:.3e} (tol {EMU_RIDGE_TOL:g}); "
+          f"fit {ridge_ms:.2f} ms on the card ({ridge_cold_ms:.2f} ms the first time)")
+
+    init = {n: p.numpy() for n, p in
+            MLPWorkerModel.init_params(X.shape[1], 32, 0, "cpu").items()}
+    short = {d: MLPWorkerModel.fit(X, y, ok, steps=20, device=d, init=init)
+             for d in ("cuda", "cpu")}
+    err = max(float(np.abs(short["cuda"].params[n] - short["cpu"].params[n]).max())
+              for n in init)
+    check(err <= EMU_MLP_TOL, f"MLP parameters after 20 steps, card vs CPU: {err:.3e}")
+    mlp, mlp_ms = fit_ms(lambda: MLPWorkerModel.fit(X, y, ok, steps=300, device="cuda",
+                                                    init=init))
+    mlp_cpu, mlp_cpu_ms = fit_ms(lambda: MLPWorkerModel.fit(X, y, ok, steps=300,
+                                                            device="cpu", init=init))
+    print(f"[emulation] step 2 MLP: parameters after 20 steps card vs CPU max_abs_err "
+          f"{err:.3e} (tol {EMU_MLP_TOL:g}); 300 steps: resid_std card "
+          f"{mlp.resid_std:.6f} CPU {mlp_cpu.resid_std:.6f}; fit {mlp_ms:.1f} ms on the "
+          f"card ({mlp_ms / 300:.3f} ms a step), {mlp_cpu_ms:.1f} ms on the CPU")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, prof_ms = fit_ms(lambda: MLPWorkerModel.fit(X, y, ok, steps=300, device="cuda",
+                                                       init=init))
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    print(f"[emulation] step 2 MLP under the profiler: {prof_ms:.1f} ms of wall, device busy "
+          f"{busy:.2f} ms ({busy / prof_ms:.1%}), {len(dev) / 300:.1f} device events a step")
+    for name, model in (("ridge", ridge), ("mlp", mlp)):
+        errs = emulate.row_errors(model, X, y)
+        print(f"[emulation] step 4 [{name}]: per-row median rel err {np.median(errs):.2%} "
+              f"(p90 {np.percentile(errs, 90):.2%})")
+
+    t = time.perf_counter()
+    sim, n, s = emulate.emulate(store, ridge)
+    wall = time.perf_counter() - t
+    check(s["n"] == n and s["fail_rate"] < 0.05,
+          f"1024 emulated workers: {s['n']} results of {n} requests, "
+          f"fail_rate {s['fail_rate']:.3f}")
+    print(f"[emulation] step 3: {n} requests over 1024 emulated workers (ridge fitted on "
+          f"the card) in {wall:.3f} s of host time: p50 {s['p50'] * 1e3:.2f} ms p99 "
+          f"{s['p99'] * 1e3:.2f} ms fail {s['fail_rate']:.4f}, {sim.events_processed} events, "
+          f"{sim.events_processed / wall:.0f} events/s")
+
+    for label, model in (("card", mlp), ("CPU", mlp_cpu)):
+        timed = _TimedPredict(model)
+        small = Simulator(build_tree(64, fanout=16), store, EmulatedServiceModel(timed, seed=2),
+                          seed=4)
+        n = poisson_load(small, fn="tiny-gen", rps=500, duration_s=1, seed=6)
+        s = summarize(small.run())
+        check(s["n"] == n, f"64 MLP-emulated workers ({label}): {s['n']} of {n} results")
+        print(f"[emulation] step 3: {n} requests over 64 emulated workers from the MLP on "
+              f"the {label}: {timed.calls} predict calls, "
+              f"{timed.seconds / timed.calls * 1e6:.1f} us a call; p50 {s['p50'] * 1e3:.2f} ms")
+
+
+class _TimedPredict:
+    """A worker model whose ``predict`` calls are counted and timed (host wall)."""
+
+    def __init__(self, model):
+        self.model, self.calls, self.seconds = model, 0, 0.0
+
+    def predict(self, feats, rng):
+        t = time.perf_counter()
+        out = self.model.predict(feats, rng)
+        self.seconds += time.perf_counter() - t
+        self.calls += 1
+        return out
+
+
 def _serve_image(arch, fn, tag, n_req=8):
     """``n_req`` requests of one large image (c=2, ``max_len`` 64, 4 generated
     tokens) through the Engine, prompt sizes and run points drawn as in
@@ -937,6 +1063,7 @@ def main() -> int:
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels)
     launches = timed("engine tiny/small", phase_engine)
+    timed("emulation", phase_emulation)
     launches.update(timed("engine falcon_mamba_7b", phase_engine_mamba))
     release_images()
     launches.update(timed("engine moonshot_v1_16b", phase_engine_moe))

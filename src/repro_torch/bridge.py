@@ -42,3 +42,16 @@ def params_from_numpy(tree, device="cpu",
     _flatten(tree, "", flat)
     return {name: tensor_from_numpy(np.asarray(a)).to(device=device, dtype=dtype)
             for name, a in flat.items()}
+
+
+def mlp_worker_model(model):
+    """The port's ``MLPWorkerModel`` from a JAX ``MLPWorkerModel``'s fields
+    (``params`` as numpy, ``mu``, ``sd``, ``resid_std``, ``fail_rate``), its
+    network on the CPU. A ``RidgeWorkerModel`` is plain numpy and moves by
+    its fields."""
+    from repro_torch.core.emulation import MLPNet, MLPWorkerModel
+    net = MLPNet({n: tensor_from_numpy(np.asarray(model.params[n]))
+                  for n in MLPNet.NAMES})
+    return MLPWorkerModel(net=net, mu=np.asarray(model.mu), sd=np.asarray(model.sd),
+                          resid_std=float(model.resid_std),
+                          fail_rate=float(model.fail_rate))

@@ -3,11 +3,10 @@
 Its own copy of the JAX package's ``configs/base.py`` (the port imports
 nothing of that package): :class:`ModelConfig` with its layer pattern and
 exact ``param_count``, the registry, and ``reduced`` for small test models.
-The serving demo configs, ``falcon_mamba_7b`` and the three MoE configs
-(``moonshot_v1_16b``, ``jamba15_large``, ``grok1_314b``) are registered;
-the input-shape table of the dry run is not ported yet. Configs are plain
-frozen dataclasses, so a JAX config moves to the port through
-``to_json``/``from_json``.
+Every config of the JAX package is registered (the simulator's ``fn_cost``
+reads each one's ``param_count``); the input-shape table of the dry run is
+not ported yet. Configs are plain frozen dataclasses, so a JAX config moves
+to the port through ``to_json``/``from_json``.
 """
 from __future__ import annotations
 
@@ -209,7 +208,8 @@ def list_configs() -> Sequence[str]:
 def _load_all() -> None:
     import importlib
     for mod in ("hyperfaas_demo", "falcon_mamba_7b", "moonshot_v1_16b", "jamba15_large",
-                "grok1_314b"):
+                "grok1_314b", "gemma3_12b", "qwen3_32b", "deepseek_coder_33b",
+                "mistral_large_123b", "phi3_vision", "hubert_xlarge"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -1,0 +1,23 @@
+"""deepseek-coder-33b [dense]: 62L d_model=7168 56H (GQA kv=8) d_ff=19200 vocab=32256.
+
+The port's copy of the JAX package's ``configs/deepseek_coder_33b.py``, at the same
+widths (the port imports nothing of that package).
+
+llama-arch. [arXiv:2401.14196]
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="deepseek_coder_33b",
+    family="dense",
+    num_layers=62,
+    d_model=7168,
+    num_heads=56,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=19200,
+    vocab_size=32256,
+    rope_theta=100000.0,
+    tie_embeddings=False,
+    grad_accum=8,
+))

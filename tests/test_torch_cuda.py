@@ -511,3 +511,65 @@ def test_lm_on_the_card_matches_the_cpu_at_wide_head_dims(card, hd):
             logits[name], caches[name] = lm.decode_step(caches[name], batch)
     assert fa.flash_attention.launches == cfg.num_layers
     assert dec.decode_attention.launches == 4 * cfg.num_layers
+
+
+# ------------------------------------------- worker emulation (Fig. 2, steps 2-3)
+def _emulation_rows(n=2000, seed=0):
+    """Telemetry shaped as the engine writes it (``inflight = batch_size - 1``),
+    with a known log-linear latency."""
+    rng = np.random.default_rng(seed)
+    q, b = rng.integers(0, 10, n), rng.integers(1, 8, n)
+    cold, pt = rng.random(n) < 0.1, rng.integers(8, 64, n)
+    X = np.stack([q, b - 1, b, cold, pt, np.full(n, 8), np.ones(n)], 1).astype(np.float32)
+    y = (np.exp(0.02 * q + 0.08 * b + 1.2 * cold + 0.01 * pt + rng.normal(0, 0.05, n))
+         * 0.01).astype(np.float32)
+    return X, y, (rng.random(n) > 0.01).astype(np.float32)
+
+
+def test_tf32_is_off_by_default_with_the_port_imported(card):
+    """The fits' float32 matmuls stay IEEE on the card: importing the port
+    turns TF32 on nowhere."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = ("import torch, repro_torch.core.emulation, repro_torch.launch.emulate\n"
+            "print(torch.backends.cuda.matmul.allow_tf32, "
+            "torch.get_float32_matmul_precision())\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, timeout=300,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src")))
+    assert out.stdout.split() == ["False", "highest"]
+
+
+def test_ridge_fit_on_the_card_matches_the_cpu(card):
+    from repro_torch.core.emulation import RidgeWorkerModel
+    X, y, ok = _emulation_rows()
+    cpu, gpu = (RidgeWorkerModel.fit(X, y, ok, device=d) for d in ("cpu", card))
+    xs = np.concatenate([(X - cpu.mu) / cpu.sd, np.ones((len(X), 1), np.float32)], 1)
+    np.testing.assert_allclose(xs @ gpu.w, xs @ cpu.w, atol=1e-4, rtol=0)
+    assert gpu.resid_std == pytest.approx(cpu.resid_std, rel=1e-3)
+
+
+def test_mlp_fit_on_the_card_matches_the_cpu(card):
+    from repro_torch.core.emulation import MLPWorkerModel
+    X, y, ok = _emulation_rows()
+    init = {n: p.cpu().numpy() for n, p in MLPWorkerModel.init_params(7, 32, 0, "cpu").items()}
+    cpu, gpu = (MLPWorkerModel.fit(X, y, ok, steps=20, device=d, init=init)
+                for d in ("cpu", card))
+    assert gpu.net.w1.device.type == "cuda"
+    for name, w in cpu.params.items():
+        np.testing.assert_allclose(gpu.params[name], w, atol=1e-5, rtol=0, err_msg=name)
+    rng = np.random.default_rng(0)
+    lat, _ = gpu.predict(X[0], rng)
+    assert np.isfinite(lat) and lat > 0
+
+
+def test_card_fitted_ridge_drives_64_emulated_workers(card):
+    from repro_torch.core.emulation import RidgeWorkerModel
+    from repro_torch.launch import emulate
+    ridge = RidgeWorkerModel.fit(*_emulation_rows(), device=card)
+    sim, n, s = emulate.emulate(emulate.demo_store(), ridge, workers=64, rps=500,
+                                duration_s=1)
+    assert s["n"] == n == len(sim.results) > 400 and s["fail_rate"] < 0.05

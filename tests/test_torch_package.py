@@ -51,8 +51,12 @@ def test_port_never_calls_a_library_attention():
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
+    import numpy as np
+
     from repro_torch.core.config_store import ConfigStore, ImageRegistry
+    from repro_torch.core.emulation import MLPWorkerModel, RidgeWorkerModel
     from repro_torch.core.router import build_tree
+    from repro_torch.launch import emulate
     from repro_torch.models import LM
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import Engine, Worker
@@ -66,6 +70,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         LM(get_config("tiny_lm"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LM(get_config("tiny_lm"), device="cuda")
+    X, y, ok = np.ones((4, 7), np.float32), np.ones(4, np.float32), np.ones(4, np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RidgeWorkerModel.fit(X, y, ok)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MLPWorkerModel.fit(X, y, ok, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        emulate.main(["--workers", "4", "--rps", "10", "--duration", "0.1"])
 
 
 def test_serve_cli_raises_without_a_card(monkeypatch):
