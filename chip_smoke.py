@@ -35,6 +35,16 @@ imports nothing of JAX. Phases, each of which fails the run:
    request answered, fail rate below 0.05; p50, p99, events and events/s
    printed); 64 emulated workers at 500 requests/s for 1 s from the MLP,
    one forward a request on the card and on the CPU (microseconds a call);
+4c. platform (host code, driven by 4b's card-fitted models): the JAX
+   package's pinned digests with the synthetic model (the flash-crowd
+   autoscaled run, the faults-off runs; a disabled or unlimited gateway
+   leaves the digest); from the card-fitted ridge, the autoscale study's
+   matrix (3 shapes x 5 policies), a zone outage at 1024 workers behind a
+   gateway under ``slo_aware``, ``ml_pipeline`` and the Azure sample's
+   replay: every request ends once, answered, failed or shed, and two runs
+   give equal stream and decision-log digests; ``run_partitioned`` over 4
+   partitions inline and in forked processes gives one digest, and process
+   mode refuses the MLP that lives on the card (``partition k failed``);
 5. engine: the port's ``Engine`` serves 8 requests of ``falcon_mamba_7b``
    (c=2) at full width and depth (64 layers, bfloat16), and must have
    launched B3; cold start split into materialization and warm-up, peak
@@ -79,6 +89,20 @@ SCAN_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # tests/test_kernels.py:78-79
 LOGIT_TOL = 2e-3                              # tests/test_decode_parity.py
 EMU_RIDGE_TOL = 1e-4     # ridge predicted log-latency, card vs CPU (tests/test_torch_emulation.py)
 EMU_MLP_TOL = 1e-5       # MLP parameters after 20 steps, card vs CPU (the same)
+
+# phase 4c: digests the JAX package's tests pin, copied here (this script imports
+# nothing of that package), and the autoscale study's traffic shapes
+FLASH_GOLDEN = ("9019f07d1f8667aa", "c7a8b3d40c5fc522")   # tests/test_placement.py:243-245
+FAULTS_OFF_GOLDEN = {                                      # tests/test_faults.py:234-239
+    "steady": ("90ac57f36c579d36", dict(rps=300.0, duration_s=8.0, seed=3)),
+    "multi_tenant": ("ec5034f85267151c", dict(rps=400.0, duration_s=8.0, seed=3)),
+}
+FLASH = dict(duration_s=30.0, seed=3, base_rps=12.0, burst_rps=1000.0,
+             mean_burst_s=2.0, mean_calm_s=10.0)           # tests/test_placement.py:206-207
+STUDY_SHAPES = {"flash_crowd": FLASH,                      # examples/autoscale_study.py:22-28
+                "daily_cycle": dict(duration_s=60.0, seed=3, mean_rps=150.0, period_s=60.0),
+                "steady": dict(duration_s=30.0, seed=3, rps=120.0)}
+AZURE_SAMPLE = ROOT / "tests" / "data" / "azure_sample.csv"
 
 # (label, B, S, H, KV, hd, causal, window): the engine's prefills (tiny_lm and
 # small_lm, prompts bucketed to 16/32/64, 256 at the Engine's default max_len)
@@ -783,6 +807,7 @@ def phase_emulation():
         print(f"[emulation] step 3: {n} requests over 64 emulated workers from the MLP on "
               f"the {label}: {timed.calls} predict calls, "
               f"{timed.seconds / timed.calls * 1e6:.1f} us a call; p50 {s['p50'] * 1e3:.2f} ms")
+    return ridge, mlp, X
 
 
 class _TimedPredict:
@@ -797,6 +822,270 @@ class _TimedPredict:
         self.seconds += time.perf_counter() - t
         self.calls += 1
         return out
+
+
+class _FeatureRange:
+    """A worker model that keeps the largest value of each feature it was
+    asked about (the range the emulated workers drove it over)."""
+
+    def __init__(self, model):
+        self.model, self.top = model, None
+
+    def predict(self, feats, rng):
+        import numpy as np
+        self.top = feats if self.top is None else np.maximum(self.top, feats)
+        return self.model.predict(feats, rng)
+
+
+def _digest(text: str) -> str:
+    import hashlib
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def _outcomes(sim, n):
+    """Every request ends once: answered, failed (with its reason; a function
+    error that the worker model drew has the empty reason) or shed by the
+    gateway with its terminal reason. Returns the counts of the three."""
+    from repro_torch.core.gateway import ADMISSION_REJECTED, RATE_LIMITED
+    rids = [r.rid for r in sim.results]
+    check(len(rids) == n == len(set(rids)),
+          f"{len(rids)} results ({len(set(rids))} distinct) for {n} requests")
+    out = {"ok": 0, "failed": 0, "shed": 0}
+    for r in sim.results:
+        out["ok" if r.ok else "shed" if r.error in (RATE_LIMITED, ADMISSION_REJECTED)
+            else "failed"] += 1
+    return out
+
+
+def _study_cell(shape, policy, service, *, leaf_policy="least_loaded"):
+    """One cell of ``examples/autoscale_study.py``: the static policy keeps
+    the replicate recipe's 3 branches of 2 workers, the scalers start at 1."""
+    from repro_torch.autoscale import Autoscaler, build_pool, get_autoscaler
+    from repro_torch.core.config_store import ConfigStore
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.workloads import build_scenario, install_demo_configs
+    wl = build_scenario(shape, **STUDY_SHAPES[shape])
+    store = ConfigStore()
+    install_demo_configs(store, wl)
+    sim = Simulator(build_pool(3 if policy == "static" else 1, 2, leaf_policy=leaf_policy),
+                    store, service, seed=7, worker_capacity_slots=1)
+    pol = (get_autoscaler("slo_aware", slo_p95_s=wl.slo_targets())
+           if policy == "slo_aware" else policy)
+    scaler = Autoscaler(pol, interval_s=0.25, window_s=2.0, min_replicas=1, max_replicas=8,
+                        workers_per_replica=2, cooldown_s=2.0, leaf_policy=leaf_policy)
+    sim.attach_autoscaler(scaler)
+    n = sim.load(wl)
+    sim.run()
+    return sim, scaler, n
+
+
+def _chaos_case(service):
+    """Phase 4b's scale under faults, a gateway and ``slo_aware``: 1024
+    workers in 64 branches of 16 across 4 zones, ``zone_outage`` at 5000
+    requests/s for 4 s (zone z0 dark from 1.0 s to 2.5 s, one completion in a
+    thousand lost), a retry budget of 2, the batch tenant ``embed`` held to
+    600 requests/s by its quota and the platform to 2048 outstanding."""
+    from repro_torch.autoscale import Autoscaler, build_pool, get_autoscaler
+    from repro_torch.core.config_store import ConfigStore
+    from repro_torch.core.gateway import GatewayConfig, TenantQuota
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.workloads import build_scenario, install_demo_configs
+    wl = build_scenario("zone_outage", rps=5000.0, duration_s=4.0, seed=3, outage_at=1.0,
+                        outage_duration_s=1.5, lost_finish_p=1e-3)
+    wl.gateway = GatewayConfig(
+        quotas={"embed": TenantQuota(rate=600.0, burst=50.0, priority="batch")},
+        max_inflight=2048, batch_share=0.25)
+    store = ConfigStore()
+    install_demo_configs(store, wl)
+    sim = Simulator(build_pool(64, 16), store, service, seed=7, zones=4,
+                    placer="spread_zones", retry_budget=2)
+    scaler = Autoscaler(get_autoscaler("slo_aware", slo_p95_s=wl.slo_targets()),
+                        interval_s=0.25, window_s=1.0, min_replicas=32, max_replicas=96,
+                        workers_per_replica=16, cooldown_s=1.0)
+    sim.attach_autoscaler(scaler)
+    n = sim.load(wl)
+    t = time.perf_counter()
+    sim.run()
+    return sim, scaler, n, time.perf_counter() - t
+
+
+def _tenant_build(service_of, *, tenants=16, rps=300.0, duration_s=4.0, workers=1024):
+    """``run_partitioned``'s builder: ``tenants`` Poisson tenant streams
+    bucketed by ``partition_streams`` (the ``tenant_hash`` assignment), each
+    partition a tree of ``workers / n`` emulated workers (fanout 16) served
+    by ``service_of(k)``."""
+    from repro_torch.core.config_store import ConfigStore
+    from repro_torch.core.router import build_tree
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.core.types import FunctionConfig
+    from repro_torch.parallel import partition_streams
+    from repro_torch.workloads import FunctionProfile, MixedWorkload, PoissonArrivals, SizeDist
+
+    def build(k, n):
+        streams = [MixedWorkload(PoissonArrivals(rps),
+                                 [FunctionProfile(f"t{j}", size=SizeDist.lognormal(24, 0.5))],
+                                 duration_s=duration_s, seed=100 + j, rid_base=j * 1_000_000)
+                   for j in range(tenants)]
+        mine = partition_streams(streams, n)[k]
+        store = ConfigStore()
+        for s in mine:
+            store.put(FunctionConfig(name=s.profiles[0].fn, arch="tiny_lm", concurrency=4,
+                                     gen_tokens=4, cold_start_s=0.2))
+        sim = Simulator(build_tree(workers // n, fanout=16), store, service_of(k), seed=7 + k)
+        for s in mine:
+            sim.load(s)
+        return sim
+    return build
+
+
+def phase_platform(ridge, mlp, X):
+    """The platform layers of the port (gateway, faults, workflows, scenarios,
+    the Azure trace, the autoscaler, the partitioned runner), host code driven
+    by phase 4b's card-fitted worker models: the JAX package's goldens with
+    the synthetic model; the autoscale study's matrix, a chaos case at phase
+    4b's scale, ``ml_pipeline`` and the Azure ``trace_replay`` from the
+    card-fitted ridge, each run twice for its digests; ``run_partitioned``
+    inline against process mode from the ridge, and process mode refusing
+    the MLP that lives on the card. ``X`` is the telemetry the models were
+    fitted on."""
+    from repro_torch.autoscale import list_autoscalers
+    from repro_torch.core.config_store import ConfigStore
+    from repro_torch.core.emulation import EmulatedServiceModel
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.gateway import GatewayConfig
+    from repro_torch.core.router import build_tree
+    from repro_torch.core.simulator import (Simulator, SyntheticServiceModel, stream_digest,
+                                            summarize)
+    from repro_torch.core.types import TelemetryRecord
+    from repro_torch.parallel import run_partitioned
+    from repro_torch.workloads import build_scenario, install_demo_configs, summarize_workflows
+
+    smi = nvidia_smi()
+    t = time.perf_counter()
+    sim, scaler, _ = _study_cell("flash_crowd", "slo_aware", SyntheticServiceModel(seed=2),
+                                 leaf_policy="warm_least_loaded")
+    got = (stream_digest(sim), _digest(scaler.decision_log()))
+    check(got == FLASH_GOLDEN, f"flash_crowd autoscaled golden: {got} != {FLASH_GOLDEN}")
+    for name, (want, kw) in FAULTS_OFF_GOLDEN.items():
+        wl = build_scenario(name, **kw)
+        store = ConfigStore()
+        install_demo_configs(store, wl)
+        sim = Simulator(build_tree(8, fanout=4), store, SyntheticServiceModel(seed=2), seed=7,
+                        zones=2, faults=FaultConfig())
+        sim.load(wl)
+        sim.run()
+        check((stream_digest(sim), sim.fault_log()) == (want, ""),
+              f"faults wired but off, {name}: {stream_digest(sim)} != {want}")
+    gw = {}
+    for label, cfg in (("none", None), ("disabled", GatewayConfig(enabled=False)),
+                       ("unlimited", GatewayConfig())):
+        wl = build_scenario("steady", rps=200.0, duration_s=4.0, seed=3)
+        store = ConfigStore()
+        install_demo_configs(store, wl)
+        sim = Simulator(build_tree(2, fanout=2), store, SyntheticServiceModel(seed=2), seed=7,
+                        gateway=cfg)
+        sim.load(wl)
+        sim.run()
+        gw[label] = stream_digest(sim)
+    check(len(set(gw.values())) == 1, f"a disabled or unlimited gateway moved the digest: {gw}")
+    print(f"[platform] goldens of the JAX package's tests: flash_crowd autoscaled {got}, "
+          f"faults wired but off {sorted(FAULTS_OFF_GOLDEN)}, gateway off = disabled = "
+          f"unlimited {gw['none']}: equal, in {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    digests, seen = [], _FeatureRange(ridge)
+    for rep in range(2):
+        row = {}
+        for shape in STUDY_SHAPES:
+            for policy in list_autoscalers():
+                sim, scaler, n = _study_cell(shape, policy, EmulatedServiceModel(seen, seed=2))
+                out = _outcomes(sim, n)
+                row[shape, policy] = (stream_digest(sim), _digest(scaler.decision_log()))
+                if rep == 0:
+                    s, sm = summarize(sim.results), scaler.summary()
+                    print(f"[platform] study {shape:>11s} {policy:>18s} (ridge): n {n} "
+                          f"p50 {s['p50'] * 1e3:.2f} p95 {s['p95'] * 1e3:.2f} p99 "
+                          f"{s['p99'] * 1e3:.2f} ms fail {out['failed'] / n:.4f} cold "
+                          f"{s['cold_rate']:.3f} worker_s {sm['worker_seconds']:.0f} ups "
+                          f"{sm['scale_ups']} downs {sm['scale_downs']} events "
+                          f"{sim.events_processed}")
+        digests.append(row)
+    check(digests[0] == digests[1], "the autoscale study's matrix differs between two runs")
+    print(f"[platform] study matrix ({len(digests[0])} cells) run twice: stream and "
+          f"decision-log digests equal, {time.perf_counter() - t:.2f} s for both runs; {smi}")
+    names = ("queue_len", "gen_tokens")
+    cols = [list(TelemetryRecord.FEATURE_NAMES).index(n) for n in names]
+    print("[platform] the ridge's range: " + "; ".join(
+        f"{n} fitted on {X[:, c].min():g}-{X[:, c].max():g} (log-latency slope "
+        f"{ridge.w[c] / ridge.sd[c]:.4f} a unit), asked about up to {seen.top[c]:g} in the study"
+        for n, c in zip(names, cols)))
+
+    runs = []
+    for _ in range(2):
+        sim, scaler, n, wall = _chaos_case(EmulatedServiceModel(ridge, seed=2))
+        runs.append((stream_digest(sim), _digest(scaler.decision_log())))
+    check(runs[0] == runs[1], f"the chaos case differs between two runs: {runs}")
+    out, s, sm = _outcomes(sim, n), summarize(sim.results), scaler.summary()
+    check(out["ok"] > 0 and sim.faults.stats.zone_outages == 1,
+          f"chaos case: {out}, faults {sim.faults.summary()}")
+    print(f"[platform] chaos case (ridge; 1024 workers, zone_outage, gateway, slo_aware): "
+          f"n {n} p50 {s['p50'] * 1e3:.2f} p95 {s['p95'] * 1e3:.2f} p99 {s['p99'] * 1e3:.2f} ms; "
+          f"fail {out['failed'] / n:.4f} shed {out['shed'] / n:.4f}; faults "
+          f"{sim.faults.summary()}; retries {sim.retries_scheduled}; scaling ups "
+          f"{sm['scale_ups']} downs {sm['scale_downs']} of {sm['ticks']} ticks; "
+          f"{sim.events_processed} events in {wall:.3f} s of host time, "
+          f"{sim.events_processed / wall:.0f} events/s; two runs' digests equal {runs[0]}; {smi}")
+
+    t = time.perf_counter()
+    wl = build_scenario("ml_pipeline", duration_s=20.0, seed=3)
+    store = ConfigStore()
+    install_demo_configs(store, wl)
+    sim = Simulator(build_tree(16, fanout=4, leaf_policy="workflow_aware",
+                               inner_policy="workflow_aware"),
+                    store, EmulatedServiceModel(ridge, seed=2), seed=7)
+    n = sim.load(wl)
+    sim.run()
+    w = summarize_workflows(sim.workflow_results)
+    check(w["n"] == n > 0 and w.get("ok", 0) > 0, f"ml_pipeline: {w} of {n} instances")
+    wl = build_scenario("trace_replay", path=str(AZURE_SAMPLE), fmt="azure", aggregate=True,
+                        time_scale=0.01, seed=5)
+    store = ConfigStore()
+    install_demo_configs(store, wl)
+    trace = Simulator(build_tree(2, fanout=2), store, EmulatedServiceModel(ridge, seed=2),
+                      seed=7)
+    nt = trace.load(wl)
+    trace.run()
+    out = _outcomes(trace, nt)
+    check(nt == 27, f"the Azure sample replays {nt} requests, not 27")
+    print(f"[platform] ml_pipeline (ridge): {n} workflows, {w['tasks']} tasks, p50 "
+          f"{w['p50'] * 1e3:.2f} p95 {w['p95'] * 1e3:.2f} ms, fail {w['fail_rate']:.4f}; "
+          f"trace_replay of the Azure sample: {nt} requests, {out}; "
+          f"{time.perf_counter() - t:.2f} s")
+
+    build = _tenant_build(lambda k: EmulatedServiceModel(ridge, seed=k))
+    merged, wall = {}, {}
+    for mode in ("inline", "process"):
+        t = time.perf_counter()
+        merged[mode] = run_partitioned(build, 4, mode=mode)
+        wall[mode] = time.perf_counter() - t
+    a, b = merged["inline"], merged["process"]
+    check(b.mode == "process" and a.digest() == b.digest() and a.digests == b.digests,
+          f"run_partitioned inline {a.digest()} != process {b.digest()}")
+    print(f"[platform] run_partitioned, 4 partitions of 256 workers (ridge): "
+          f"{a.summary()['n']} requests, merged digest {a.digest()} inline = process; "
+          f"inline {wall['inline']:.3f} s, process {wall['process']:.3f} s; {smi}")
+    t = time.perf_counter()
+    try:
+        run_partitioned(_tenant_build(lambda k: EmulatedServiceModel(mlp, seed=k), tenants=4,
+                                      duration_s=0.5), 4, mode="process")
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and refused.startswith("partition ") and "CUDA" in refused,
+          f"process mode with the MLP on the card did not fail as documented: {refused}")
+    print(f"[platform] process mode with the MLP on the card refused in "
+          f"{time.perf_counter() - t:.2f} s: {refused.splitlines()[0]} "
+          f"{[ln for ln in refused.splitlines() if 'CUDA' in ln][-1].strip()}")
 
 
 def _serve_image(arch, fn, tag, n_req=8):
@@ -1063,7 +1352,8 @@ def main() -> int:
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels)
     launches = timed("engine tiny/small", phase_engine)
-    timed("emulation", phase_emulation)
+    ridge, mlp, X = timed("emulation", phase_emulation)
+    timed("platform", lambda: phase_platform(ridge, mlp, X))
     launches.update(timed("engine falcon_mamba_7b", phase_engine_mamba))
     release_images()
     launches.update(timed("engine moonshot_v1_16b", phase_engine_moe))
