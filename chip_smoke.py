@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port starts and serves on the GPU.
+"""Quickest proof that the PyTorch port starts, serves and trains on the GPU.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,9 @@ imports nothing of JAX. Phases, each of which fails the run:
 
 1. environment: the card's name, power limit and max SM clock, torch, the
    capability;
-2. build: the four kernels of the serving paths from ``src/repro_torch/csrc``,
-   one ``nvcc`` each, all at once; registers and spills of every kernel;
+2. build: the kernels of the serving and training paths (B1-B4 and the
+   flash backward B1b) from ``src/repro_torch/csrc``, one ``nvcc`` a source,
+   all at once; registers and spills of every kernel;
 3. kernels against their plain PyTorch versions on the card, at the serving
    shapes, at the JAX package's sweep shapes and at the head dims of its
    other configs (80, 96, 256): attention (B1, B2, each B2 line naming its
@@ -57,7 +58,24 @@ imports nothing of JAX. Phases, each of which fails the run:
    96 and 256, and f32 ``falcon_mamba_7b`` and ``moonshot_v1_16b`` cut to 2
    layers at full width, on the card (kernels)
    against the same weights on the CPU (plain versions): logits and caches
-   within 2e-3, greedy tokens equal, over a prefill and 4 decode steps.
+   within 2e-3, greedy tokens equal, over a prefill and 4 decode steps;
+8. train: ``repro_torch.launch.train`` trains ``train_100m`` at full width
+   and depth in bfloat16 (12 layers, d_model 768, vocab 32768; 30 steps of 8
+   sequences of 1024 tokens in 2 microbatches, a checkpoint every 10): the
+   loss finite and falling, B1 (with its logsumexp) launched twice per layer
+   per microbatch (once more by the recompute of ``remat``) and B1b once,
+   step time, wall against device time, tokens/s and peak memory; a run of
+   20 steps, then a run resumed from its step-10 checkpoint, whose losses
+   at steps 11-20 must equal the first run's bit for bit; and 3 f32 train
+   steps of ``train_100m`` cut to 2 layers at full width on the card against
+   the same weights on the CPU, losses and parameters within 2e-3.
+
+Phase 3 also holds B1's logsumexp (within 2e-4 in f32, 2e-2 in bf16) and
+the flash backward B1b (dq, dk, dv within rtol 1e-3, atol 1e-4 in f32, the
+reference's gradient tolerance, and 2e-2 in bf16) against their plain
+versions at ``train_100m``'s microbatch, a GQA and a windowed shape, with
+B1b's times beside the backward of ``scaled_dot_product_attention``
+through autograd (timed here only) and B1's cost of writing the logsumexp.
 
 Between the engine phases the image cache is emptied, so that the card
 holds one large image at a time.
@@ -87,6 +105,9 @@ SFU_PER_CLOCK = 16                            # ex2 a clock per SM (compute capa
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}     # tests/test_kernels.py:17-19
 SCAN_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # tests/test_kernels.py:78-79
 LOGIT_TOL = 2e-3                              # tests/test_decode_parity.py
+GRAD_TOL = {"float32": (1e-3, 1e-4),          # (rtol, atol): tests/test_attention.py:40
+            "bfloat16": (2e-2, 2e-2)}         # tests/test_kernels.py:18
+TRAIN_TOL = 2e-3                              # train-step losses and parameters, card vs CPU
 EMU_RIDGE_TOL = 1e-4     # ridge predicted log-latency, card vs CPU (tests/test_torch_emulation.py)
 EMU_MLP_TOL = 1e-5       # MLP parameters after 20 steps, card vs CPU (the same)
 
@@ -192,11 +213,21 @@ GMM_CASES = [
 # both routes is held against the plain version
 GMM_SWEEP = [(512, 128, 256, 4, 64), (256, 64, 128, 8, 32),
              (256, 128, 128, 4, 128), (96, 64, 192, 3, 16)]
+# (label, B, S, H, KV, hd, causal, window): the training attention of phase 8,
+# B1 with its logsumexp and the backward B1b: train_100m's microbatch (8
+# sequences of 1024 in 2 microbatches), a GQA shape and a windowed one
+TRAIN_ATTN_CASES = [
+    ("train_100m microbatch", 4, 1024, 12, 12, 64, True, 0),
+    ("GQA H8 KV2", 4, 1024, 8, 2, 64, True, 0),
+    ("window 256", 4, 1024, 12, 12, 64, True, 256),
+]
+TRAIN_BLOCK = 256        # the plain versions' block: launch/train.py's max(64, seq // 4)
 # the shapes the kernels line reports: the engine's commonest calls
 FLASH_LINE = "tiny_lm S32"
 DECODE_LINE = "tiny_lm c4 W64"
 MAMBA_LINE = "falcon_mamba_7b S32"
 GMM_LINE = "moonshot decode c2 wg/wi"    # 2 of B4's 3 calls per layer of a decode step
+BWD_LINE = "train_100m microbatch"
 
 
 class SmokeError(RuntimeError):
@@ -417,6 +448,7 @@ def phase_kernels():
                     F, dec, q, kc, vc, pos, ring, dname, err)
     rows.update(_check_mamba(gen))
     rows.update(_check_gmm(gen))
+    rows.update(_check_train_attention())
     print("[kernels] ms: CUDA events over back-to-back calls (host overhead "
           "included); device_ms: the profiler's kernel time per call")
     for (name, label, dname), r in rows.items():
@@ -635,6 +667,101 @@ def _time_decode(F, dec, q, kc, vc, pos, ring, dname, err):
                     f"B{B} W{W} H{H} KV{KV} hd{hd}, {route}", err, lib_err, b_ms, b_by)
 
 
+def _check_train_attention():
+    """B1's logsumexp and the backward B1b against their plain versions at
+    the training shapes, both types; B1b timed in bf16 at train_100m's
+    microbatch (and B1 with and without its logsumexp)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    rows = {}
+    for case in TRAIN_ATTN_CASES:
+        label, B, S, H, KV, hd, causal, window = case
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            g = _own_gen("flash_attention_bwd", label, dname)
+            q, k, v, dout = (_inputs(g, (B, S, n, hd), dtype) for n in (H, KV, KV, H))
+            out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                          return_lse=True)
+            plain = fa.flash_attention(q, k, v, causal=causal, window=window)
+            _, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                  return_lse=True)
+            torch.cuda.synchronize()
+            tol = TOL[dname]
+            lse_err = (lse - ref_lse).abs().max().item()
+            ok = torch.equal(out, plain) and torch.allclose(lse, ref_lse, rtol=tol, atol=tol)
+            print(f"[kernels] flash_attention lse {label} B{B} S{S} H{H} KV{KV} hd{hd} "
+                  f"causal={causal} window={window} {dname}: lse max_abs_err {lse_err:.3e} "
+                  f"(tol {tol:g}), out equal to the call without lse: "
+                  f"{torch.equal(out, plain)} {'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_attention lse {label} {dname} disagrees with its plain version")
+            args = (q, k, v, out, lse, dout)
+            got = fb.flash_attention_bwd(*args, causal=causal, window=window)
+            want = fb.flash_attention_bwd_plain(*args, causal=causal, window=window,
+                                                block=TRAIN_BLOCK)
+            again = fb.flash_attention_bwd(*args, causal=causal, window=window)
+            torch.cuda.synchronize()
+            rtol, atol = GRAD_TOL[dname]
+            errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+            ok = all(torch.allclose(a.float(), b.float(), rtol=rtol, atol=atol)
+                     for a, b in zip(got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"[kernels] flash_attention_bwd {label} B{B} S{S} H{H} KV{KV} hd{hd} "
+                  f"causal={causal} window={window} {dname}: max_abs_err dq {errs[0]:.3e} "
+                  f"dk {errs[1]:.3e} dv {errs[2]:.3e} (rtol {rtol:g} atol {atol:g}); two calls "
+                  f"bit-equal: {same} {'ok' if ok and same else 'FAIL'}")
+            check(ok, f"flash_attention_bwd {label} {dname} disagrees with its plain version")
+            check(same, f"flash_attention_bwd {label} {dname} is not deterministic")
+            if label == BWD_LINE and dname == "bfloat16":
+                rows[("flash_attention_bwd", label, dname)] = _time_flash_bwd(
+                    fa, fb, args, causal, window, dname, max(errs))
+    return rows
+
+
+def _time_flash_bwd(fa, fb, args, causal, window, dname, err):
+    import torch
+    import torch.nn.functional as F
+    q, k, v, out, lse, dout = args
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    kern = lambda: fb.flash_attention_bwd(*args, causal=causal, window=window)
+    plain = lambda: fb.flash_attention_bwd_plain(*args, causal=causal, window=window,
+                                                 block=TRAIN_BLOCK)
+    # the library: the backward of SDPA through autograd, its forward run once
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    mask = None
+    if window:
+        i = torch.arange(S, device=q.device)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                        is_causal=causal and mask is None, enable_gqa=True)
+    dot = dout.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+    lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
+                  for a, b in zip(lib(), plain()))
+    pairs = 0
+    for t in range(S):   # (query, key) pairs the mask lets through
+        lo = max(0, t - window + 1) if window else 0
+        pairs += (t + 1 if causal else S) - lo
+    # q, k, v, out, dout read and dq, dk, dv written once (lse: 4 bytes a row);
+    # five products (s, dp, dv, dk, dq) of 2*hd operations per visible pair
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 10.0 * hd * pairs * B * H, dname)
+    r = _timings(kern, fb.flash_attention_bwd, plain, lib, f"B{B} S{S} H{H} KV{KV} hd{hd}",
+                 err, lib_err, b_ms, b_by, library="scaled_dot_product_attention backward",
+                 plain_iters=20)
+    with_lse = lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
+                                          return_lse=True)
+    without = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
+    print(f"[kernels] flash_attention at {BWD_LINE} {dname}: the logsumexp's cost, device ms "
+          f"without {_ms(device_ms(without, wrapper=fa.flash_attention))} with "
+          f"{_ms(device_ms(with_lse, wrapper=fa.flash_attention))}; kernel_ms without "
+          f"{time_ms(without):.4f} with {time_ms(with_lse):.4f}")
+    return r
+
+
 def phase_engine():
     import numpy as np
     import torch
@@ -702,10 +829,12 @@ def _wrappers():
     """Every kernel wrapper of the port, by name: each counts its launches."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import moe_gmm
     return {"flash_attention": fa.flash_attention, "decode_attention": dec.decode_attention,
-            "mamba_scan": ms.mamba_scan, "grouped_matmul": moe_gmm.grouped_matmul}
+            "mamba_scan": ms.mamba_scan, "grouped_matmul": moe_gmm.grouped_matmul,
+            "flash_attention_bwd": fb.flash_attention_bwd}
 
 
 def phase_emulation():
@@ -1331,6 +1460,176 @@ def _parity(cfg, label, B=2, S0=16, W=32, steps=4):
           f"max_abs_err {worst:.3e}, caches {errs} (tol {LOGIT_TOL:g}), greedy tokens equal")
 
 
+TRAIN_ARGS = ["--arch", "train_100m", "--seq", "1024", "--batch", "8", "--accum", "2",
+              "--ckpt-every", "10"]
+
+
+def phase_train():
+    """``train_100m`` at full width and depth through ``repro_torch.launch.train``
+    (bf16, AdamW, remat): 30 steps with every launch count set to 0 just
+    before and read just after; then a 20-step run and a run resumed from its
+    step-10 checkpoint for 10 more, profiled; then the 2-layer f32 parity."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config("train_100m")
+    steps, micro = 30, 2
+    wrappers = _wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        rec = train.main(TRAIN_ARGS + ["--steps", str(steps), "--ckpt", os.path.join(tmp, "a")])
+        launches = {name: w.launches for name, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+        losses = np.asarray(rec["losses"])
+        check(len(losses) == steps and np.isfinite(losses).all(), f"losses {losses}")
+        first, last = losses[:5].mean(), losses[-5:].mean()
+        print(f"[train] train_100m {cfg.dtype}, {cfg.num_layers} layers, "
+              f"{cfg.param_count() / 1e6:.1f} M parameters, {steps} steps of 8 x 1024 tokens "
+              f"({micro} microbatches): loss {losses[0]:.4f} -> {losses[-1]:.4f}, mean of the "
+              f"first 5 {first:.4f}, of the last 5 {last:.4f}")
+        check(last < first, f"the loss did not fall: first 5 {first:.4f}, last 5 {last:.4f}")
+        fwd = cfg.num_layers * micro * steps
+        want = {"flash_attention": 2 * fwd, "flash_attention_bwd": fwd, "decode_attention": 0,
+                "mamba_scan": 0, "grouped_matmul": 0}
+        print(f"[train] kernel launches {launches}; reckoned: B1 (with lse) {cfg.num_layers} "
+              f"layers x {micro} microbatches x {steps} steps x 2 (remat) = {2 * fwd}, "
+              f"B1b {fwd}")
+        check(launches == want, f"launches {launches} are not the reckoned {want}")
+        print(f"[train] {rec['seconds'] / steps * 1e3:.1f} ms a step (wall, the first step "
+              f"and 3 checkpoints' host copies included), {rec['tokens'] / rec['seconds']:.0f} "
+              f"tokens/s; peak device memory {peak / 2**30:.2f} GiB")
+
+        ck = os.path.join(tmp, "b")
+        full = train.main(TRAIN_ARGS + ["--steps", "20", "--ckpt", ck])
+        shutil.rmtree(os.path.join(ck, "step_000000020"))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            resumed = train.main(TRAIN_ARGS + ["--steps", "10", "--ckpt", ck])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e6
+        check(resumed["start"] == 10, f"resumed at step {resumed['start']}, not 10")
+        check(resumed["losses"] == full["losses"][10:],
+              f"resumed losses {resumed['losses']} != {full['losses'][10:]}")
+        print(f"[train] resumed from step 10: steps 11-20 losses equal the uninterrupted "
+              f"run's bit for bit ({resumed['losses'][0]:.6f} ... {resumed['losses'][-1]:.6f}); "
+              f"the 20-step run's losses equal the 30-step run's first 20: "
+              f"{full['losses'] == rec['losses'][:20]}")
+        print(f"[train] resumed run under the profiler (restore and checkpoint included): wall "
+              f"{wall:.3f} s, device busy {busy:.3f} s ({busy / wall:.1%}); per step "
+              f"{wall / 10 * 1e3:.1f} ms wall, {busy / 10 * 1e3:.1f} ms device")
+    _train_steady(cfg)
+    _train_parity()
+    return {name: launches[name] for name in ("flash_attention_bwd",)}
+
+
+def _train_steady(cfg, warm=2, timed=5, profiled=3):
+    """A steady train step of train_100m outside the launcher (no checkpoint,
+    no first step): wall ms to a synchronize, then device time and the
+    kernels that take it, from the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import LM
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.trainer import make_train_step
+
+    lm = LM(cfg, device="cuda", seed=0, attn_block=TRAIN_BLOCK)
+    opt = make_optimizer("adamw", warmup_cosine(3e-3, 20, 100), cfg)
+    params = {n: p.detach() for n, p in lm.params().items()}
+    state, step = opt.init(params), make_train_step(lm, opt, accum=2)
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, global_batch=8))
+    batches = [stream.batch(i) for i in range(warm + timed + profiled)]
+    for b in batches[:warm]:
+        params, state, _ = step(params, state, b)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for b in batches[warm:warm + timed]:
+        params, state, _ = step(params, state, b)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / timed
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in batches[warm + timed:]:
+            params, state, _ = step(params, state, b)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values()) / profiled
+    print(f"[train] steady step (8 x 1024 tokens, no checkpoint): {wall * 1e3:.1f} ms wall, "
+          f"{busy:.1f} ms device ({busy / (wall * 1e3):.1%} busy), "
+          f"{8 * 1024 / wall:.0f} tokens/s; device time by kernel, per step:")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[train]   {ms / profiled:8.3f} ms {ms / profiled / busy:6.1%}  {name[:90]}")
+    for kernel in ("bwd_dq_kernel", "bwd_dkdv_kernel", "flash_fwd_tc_kernel"):
+        ms = sum(v for k, v in by_name.items() if kernel in k) / profiled
+        print(f"[train]   {ms:8.3f} ms {ms / busy:6.1%}  {kernel} (port)")
+
+
+def _train_parity(steps=3):
+    """3 f32 train steps of train_100m cut to 2 layers at full width, on the
+    card (B1, B1b) and on the CPU (the plain versions) from the same weights
+    and batches: each step's loss, then every parameter."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import LM
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = replace(get_config("train_100m"), dtype="float32", num_layers=2)
+    gpu = LM(cfg, device="cuda", seed=11, attn_block=64)
+    cpu = copy.deepcopy(gpu).to("cpu")   # the card's weights: the CPU would draw others
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=4,
+                                    seed=0))
+    runs = {}
+    for name, lm in (("gpu", gpu), ("cpu", cpu)):
+        opt = make_optimizer("adamw", warmup_cosine(3e-3, 20, steps), cfg)
+        params = {n: p.detach() for n, p in lm.params().items()}
+        state, step, losses = opt.init(params), make_train_step(lm, opt, accum=2), []
+        t = time.perf_counter()
+        for i in range(steps):
+            params, state, m = step(params, state, stream.batch(i))
+            losses.append(float(m["loss"]))
+        runs[name] = (losses, params, time.perf_counter() - t)
+    (gl, gp, gs), (cl, cp, cs) = runs["gpu"], runs["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(gl, cl))
+    check(all(abs(a - b) <= TRAIN_TOL * (1 + abs(b)) for a, b in zip(gl, cl)),
+          f"train-step losses card {gl} vs CPU {cl}")
+    param_err = 0.0
+    for n, c in cp.items():
+        g = gp[n].cpu()
+        param_err = max(param_err, (g - c).abs().max().item())
+        check(torch.allclose(g, c, rtol=TRAIN_TOL, atol=TRAIN_TOL),
+              f"parameter {n} after {steps} steps: card vs CPU max_abs_err "
+              f"{(g - c).abs().max().item():.3e}")
+    print(f"[train] parity: train_100m cut to 2 layers at full width, f32, {steps} steps of "
+          f"4 x 256 tokens (2 microbatches), card vs CPU: losses {[round(x, 6) for x in gl]}, "
+          f"max_abs_err {loss_err:.3e}; parameters max_abs_err {param_err:.3e} (tol "
+          f"{TRAIN_TOL:g}); {gs:.2f} s on the card, {cs:.2f} s on the CPU")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1359,6 +1658,7 @@ def main() -> int:
     launches.update(timed("engine moonshot_v1_16b", phase_engine_moe))
     release_images()
     timed("parity", phase_parity)
+    launches.update(timed("train", phase_train))
 
     kernels = []
     for name, label, dname, replaces, source in (
@@ -1371,7 +1671,10 @@ def main() -> int:
             ("mamba_scan", MAMBA_LINE, "float32", "src/repro/kernels/mamba_scan.py:68",
              "src/repro_torch/csrc/mamba_scan.cu"),
             ("grouped_matmul", GMM_LINE, "bfloat16", "src/repro/kernels/moe_gmm.py:71",
-             "src/repro_torch/csrc/moe_gmm.cu")):
+             "src/repro_torch/csrc/moe_gmm.cu"),
+            # no pallas_call: the backward of attend_blocked's custom VJP
+            ("flash_attention_bwd", BWD_LINE, "bfloat16", "src/repro/models/attention.py:150",
+             "src/repro_torch/csrc/flash_attention_bwd.cu")):
         r = rows[(name, label, dname)]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

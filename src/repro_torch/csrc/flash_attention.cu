@@ -36,6 +36,12 @@
 // hd 256 Q's fragments are read from shared memory at each step instead of
 // being held in registers beside o.
 //
+// The logsumexp: where the caller passes an `lse` buffer (training, whose
+// backward B1b recomputes the probabilities from it), each row's
+// m + log(max(l, 1e-30)) is written there in float32, laid out [B, S, H]
+// (= [B, S, KV, G], as the JAX package's _attend_fwd_impl returns it). The
+// serving calls pass none and do no more than test the pointer once a row.
+//
 // float32: kept for exactness (TF32 on the tensor cores would not hold 2e-4);
 // not on the serving path. One block of 256 threads per (64-row q tile, head,
 // batch); Q, K and V staged through shared memory as float32; each row owned
@@ -55,7 +61,7 @@ constexpr int kTPR = 4;   // threads per query row
 template <typename T, int HD>
 __global__ void __launch_bounds__(kBQ * kTPR)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int S, int H, int KV,
+                 T* __restrict__ out, float* __restrict__ lse, int S, int H, int KV,
                  int64_t sqb, int64_t sqs, int64_t sqh,
                  int64_t skb, int64_t sks, int64_t skh,
                  int64_t svb, int64_t svs, int64_t svh,
@@ -149,11 +155,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     T* ob = out + ((static_cast<int64_t>(b) * S + qi) * H + h) * HD;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) ob[part + i * kTPR] = rt::from_float<T>(acc[i] / lc);
+    if (lse != nullptr && part == 0)
+      lse[(static_cast<int64_t>(b) * S + qi) * H + h] = m + logf(lc);
   }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int KV,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+           int H, int KV,
            int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
            int64_t svb, int64_t svs, int64_t svh, int causal, int window, float scale,
            cudaStream_t stream) {
@@ -164,7 +173,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kBQ * kTPR, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, KV, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh,
+      static_cast<T*>(out), lse, S, H, KV, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh,
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -203,8 +212,9 @@ template <int HD> constexpr int tc_max_nw() {
 template <int HD, int QW, int NW>
 __global__ void __launch_bounds__(32 * QW * NW)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int S,
-                    int H, int KV, int64_t sqb, int64_t sqs, int64_t sqh,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse, int S, int H, int KV,
+                    int64_t sqb, int64_t sqs, int64_t sqh,
                     int64_t skb, int64_t sks, int64_t skh,
                     int64_t svb, int64_t svs, int64_t svh,
                     int causal, int window, float scale) {
@@ -387,11 +397,14 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (qi[r] >= S) continue;
-      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      const float lc = fmaxf(l[r], 1e-30f);
+      const float inv = 1.f / lc;
 #pragma unroll
       for (int d = 0; d < HD / 8; ++d)
         *reinterpret_cast<uint32_t*>(ob + qi[r] * row_stride + d * 8) =
             rt::pack_bf16(o[d][2 * r] * inv, o[d][2 * r + 1] * inv);
+      if (lse != nullptr && tq == 0)
+        lse[(static_cast<int64_t>(b) * S + qi[r]) * H + h] = m[r] + logf(lc);
     }
   } else {
     // combine the warps' partial (m, l, o) of the same rows, as the online
@@ -426,7 +439,11 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     }
     float inv[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(lt[r], 1e-30f);
+    for (int r = 0; r < 2; ++r) {
+      inv[r] = 1.f / fmaxf(lt[r], 1e-30f);
+      if (lse != nullptr && split == 0 && tq == 0 && qi[r] < S)
+        lse[(static_cast<int64_t>(b) * S + qi[r]) * H + h] = mt[r] + logf(fmaxf(lt[r], 1e-30f));
+    }
     for (int d = split; d < HD / 8; d += NW) {
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -446,7 +463,8 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 }
 
 template <int HD, int QW, int NW>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int KV,
+int launch_tc(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+              int H, int KV,
               int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
               int64_t svb, int64_t svs, int64_t svh, int causal, int window, float scale,
               cudaStream_t stream) {
@@ -458,8 +476,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
   dim3 grid((S + QW * kTcBQ - 1) / (QW * kTcBQ), H, B);
   kernel<<<grid, 32 * L::kWarps, L::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, H, KV, sqb,
-      sqs, sqh, skb, sks, skh, svb, svs, svh, causal, window, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, S, H, KV,
+      sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -507,17 +525,17 @@ int tc_shape(int S, int H, int B, int causal, int window, int max_nw, int* qw) {
 }
 
 template <int HD>
-int launch_tc_shape(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-                    int KV, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb, int64_t sks,
-                    int64_t skh, int64_t svb, int64_t svs, int64_t svh, int causal, int window,
-                    float scale, cudaStream_t st) {
+int launch_tc_shape(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                    int S, int H, int KV, int64_t sqb, int64_t sqs, int64_t sqh,
+                    int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
+                    int causal, int window, float scale, cudaStream_t st) {
   int qw = 1;
   const int nw = tc_shape(S, H, B, causal, window, tc_max_nw<HD>(), &qw);
 #define RT_FLASH_TC(QW, NW)                                                                  \
   if constexpr (TcFlash<HD, QW, NW>::kFits)                                                  \
     if (qw == QW && nw == NW)                                                                \
-      return launch_tc<HD, QW, NW>(q, k, v, out, B, S, H, KV, sqb, sqs, sqh, skb, sks, skh,  \
-                                   svb, svs, svh, causal, window, scale, st);
+      return launch_tc<HD, QW, NW>(q, k, v, out, lse, B, S, H, KV, sqb, sqs, sqh, skb, sks,  \
+                                   skh, svb, svs, svh, causal, window, scale, st);
   RT_FLASH_TC(1, 1)
   RT_FLASH_TC(1, 2)
   RT_FLASH_TC(1, 4)
@@ -528,18 +546,18 @@ int launch_tc_shape(const void* q, const void* k, const void* v, void* out, int 
 }
 
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out, int B, int S,
-                int H, int KV, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb, int64_t sks,
-                int64_t skh, int64_t svb, int64_t svs, int64_t svh, int causal, int window,
-                float scale, cudaStream_t st) {
+int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out, float* lse,
+                int B, int S, int H, int KV, int64_t sqb, int64_t sqs, int64_t sqh,
+                int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
+                int causal, int window, float scale, cudaStream_t st) {
 #define RT_FLASH_CASE(D)                                                                     \
   case D:                                                                                    \
     if constexpr (std::is_same<T, __nv_bfloat16>::value)                                     \
-      return launch_tc_shape<D>(q, k, v, out, B, S, H, KV, sqb, sqs, sqh, skb, sks, skh, svb,  \
-                                svs, svh, causal, window, scale, st);                        \
+      return launch_tc_shape<D>(q, k, v, out, lse, B, S, H, KV, sqb, sqs, sqh, skb, sks, skh,  \
+                                svb, svs, svh, causal, window, scale, st);                   \
     else                                                                                     \
-      return launch<T, D>(q, k, v, out, B, S, H, KV, sqb, sqs, sqh, skb, sks, skh, svb, svs, \
-                          svh, causal, window, scale, st);
+      return launch<T, D>(q, k, v, out, lse, B, S, H, KV, sqb, sqs, sqh, skb, sks, skh, svb,  \
+                          svs, svh, causal, window, scale, st);
   switch (hd) {
     RT_FLASH_CASE(16)
     RT_FLASH_CASE(32)
@@ -558,19 +576,20 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out, 
 
 // Plain C entry point, loaded with ctypes. Strides are in elements; the head
 // dimension must be contiguous, and for bfloat16 (16-byte cp.async) every
-// row 16-byte aligned. Returns the cudaError_t of the launch.
+// row 16-byte aligned. lse: null, or a contiguous float32 [B, S, H] buffer for
+// each row's logsumexp. Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   int dtype, int B, int S, int H, int KV, int hd,
+                                   float* lse, int dtype, int B, int S, int H, int KV, int hd,
                                    int64_t sqb, int64_t sqs, int64_t sqh,
                                    int64_t skb, int64_t sks, int64_t skh,
                                    int64_t svb, int64_t svs, int64_t svh,
                                    int causal, int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kFloat32)
-    return dispatch_hd<float>(hd, q, k, v, out, B, S, H, KV, sqb, sqs, sqh, skb, sks, skh, svb,
-                              svs, svh, causal, window, scale, st);
+    return dispatch_hd<float>(hd, q, k, v, out, lse, B, S, H, KV, sqb, sqs, sqh, skb, sks, skh,
+                              svb, svs, svh, causal, window, scale, st);
   if (dtype == rt::kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, S, H, KV, sqb, sqs, sqh, skb, sks,
-                                      skh, svb, svs, svh, causal, window, scale, st);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, lse, B, S, H, KV, sqb, sqs, sqh, skb,
+                                      sks, skh, svb, svs, svh, causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,6 +23,12 @@ arithmetic is (see the note in the source). The route follows the type
 - float32: a float32 FMA loop (one block per 64 query rows), exact to
   2e-4, which TF32 would not be.
 
+With ``return_lse=True`` (the training path, whose backward B1b in
+``flash_attention_bwd.py`` recomputes the probabilities from it) both routes
+also write each row's logsumexp ``m + log(max(l, 1e-30))`` in float32, shaped
+``[B, S, KV, G]`` as the JAX package's ``_attend_fwd_impl`` returns it; the
+serving calls pass no buffer and the kernel writes none.
+
 :func:`flash_attention_plain` is the same function in plain PyTorch (the JAX
 package's ``attend_plain``): the CPU path and the kernel's yardstick of
 correctness. :func:`flash_attention` launches the kernel and counts its
@@ -45,8 +51,11 @@ ROUTES = {torch.float32: "float32 FMA", torch.bfloat16: "bf16 tensor cores (mma.
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Materialized-scores attention in float32. q [B,S,H,hd]; k,v [B,S,KV,hd]."""
+                          causal: bool = True, window: int = 0, return_lse: bool = False):
+    """Materialized-scores attention in float32. q [B,S,H,hd]; k,v [B,S,KV,hd].
+
+    With ``return_lse``, returns ``(out, lse)``: lse [B,S,KV,G] float32, the
+    logsumexp of each row's masked scores."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -60,8 +69,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= (pos[:, None] - pos[None, :]) < window
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    out = torch.einsum("bkgqt,btkd->bqkgd", p, v.float()).reshape(B, S, H, hd).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2)
+    return out
 
 
 _FN = None
@@ -71,7 +82,7 @@ def _kernel():
     global _FN
     if _FN is None:
         fn = build.load("flash_attention").flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_int64] * 9
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -106,18 +117,23 @@ def _check(q, k, v):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Launch kernel B1 on CUDA tensors: q [B,S,H,hd]; k,v [B,S,KV,hd] -> [B,S,H,hd]."""
+                    causal: bool = True, window: int = 0, return_lse: bool = False):
+    """Launch kernel B1 on CUDA tensors: q [B,S,H,hd]; k,v [B,S,KV,hd] -> [B,S,H,hd],
+    or ``(out, lse)`` with ``return_lse`` (lse [B,S,KV,G] float32)."""
     _check(q, k, v)
     check_capability(q.device)
     B, S, H, hd = q.shape
+    KV = k.shape[2]
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, S, KV, H // KV), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, S, H, k.shape[2], hd,
+            lse.data_ptr() if return_lse else None,
+            _DTYPES[q.dtype], B, S, H, KV, hd,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -126,7 +142,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import moe_gmm as _gmm
 
@@ -22,6 +23,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        block: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse [B,S,KV,G] float32), the forward of training: kernel B1 with
+    its logsumexp on the card; on the CPU the blocked forward over ``block``
+    rows (the JAX package's ``_attend_fwd_impl``)."""
+    if q.device.type == "cpu":
+        return _flash_bwd.attend_fwd_plain(q, k, v, causal=causal, window=window, block=block)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, block: int = 512) -> _flash_bwd.Grads:
+    """(dq, dk, dv): kernel B1b on the card; on the CPU the JAX package's
+    ``_attend_bwd_impl`` over ``block``-row block pairs."""
+    if q.device.type == "cpu":
+        return _flash_bwd.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
+                                                    window=window, block=block)
+    return _flash_bwd.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                          window=window)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

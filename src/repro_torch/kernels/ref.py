@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the ported kernels (the allclose targets), named
 as in the JAX package's ``kernels/ref.py``. Each lives beside its kernel.
 ``mamba_scan_ref`` also takes ``h0`` and returns ``(y, h_S)`` where the JAX
-oracle returns y alone."""
+oracle returns y alone. The backward of attention (B1b) has no oracle in the
+JAX package's ``kernels/ref.py``; its plain version is
+``flash_attention_bwd.flash_attention_bwd_plain``."""
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention_plain as decode_attention_ref

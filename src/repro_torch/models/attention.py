@@ -1,15 +1,19 @@
 """Attention, ported from the JAX package's ``models/attention.py``.
 
+* :func:`attend_blocked` — flash attention with a flash backward, the
+  training path: a ``torch.autograd.Function`` whose forward saves each
+  row's logsumexp and whose backward recomputes the probabilities from it,
+  as the JAX function's custom VJP does.
 * :func:`attend_plain` — materialized-scores attention (the oracle).
 * :func:`attend_decode` — one-token GQA attention against a (possibly
   ring-buffered) KV cache.
 * :func:`attn_forward` / :func:`attn_decode` — the full attention block:
   projections, qk_norm, rope, cache handling.
 
-Sequence and decode attention go through ``kernels.ops``, which picks by
-device: kernels B1 and B2 on the card, their plain versions on the CPU.
-The blocked-flash path with its custom backward (``attend_blocked``) belongs
-to the training slice and is not ported yet.
+Attention goes through ``kernels.ops``, which picks by device: kernels B1
+(with its logsumexp when training), B1b (the backward) and B2 on the card,
+their plain versions on the CPU (for training, the JAX package's blocked
+``_attend_fwd_impl`` / ``_attend_bwd_impl`` over ``block``-row pairs).
 """
 from __future__ import annotations
 
@@ -21,7 +25,44 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
 from repro_torch.models.layers import head_rms_norm, rope
 
-__all__ = ["NEG_INF", "attend_plain", "attend_decode", "attn_forward", "attn_decode"]
+__all__ = ["NEG_INF", "attend_blocked", "attend_plain", "attend_decode", "attn_forward",
+           "attn_decode"]
+
+
+class _AttendBlocked(torch.autograd.Function):
+    """B1 with its logsumexp forward, B1b backward (the plain blocked versions
+    on the CPU). Saves (q, k, v, out, lse), as the JAX custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, block):
+        out, lse = ops.flash_attention_lse(q, k, v, causal=causal, window=window, block=block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        # B1b takes contiguous tensors (no copy where they are: q, k, v and
+        # out of attn_forward); dout may arrive strided
+        q, k, v, out, lse, dout = (t.contiguous() for t in (*ctx.saved_tensors, dout))
+        causal, window, block = ctx.mask
+        dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                             window=window, block=block)
+        return dq, dk, dv, None, None, None
+
+
+def attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                   window: int = 0, block: int = 512) -> torch.Tensor:
+    """Flash attention with a flash backward. q [B,S,H,hd]; k,v [B,S,KV,hd].
+
+    The backward recomputes p-blocks from the saved (q, k, v, out,
+    logsumexp) instead of saving every probability block of the forward.
+    ``block`` is the plain versions' block (a divisor of S); the kernels
+    take their own tiles."""
+    block = min(block, q.shape[1])
+    if q.shape[1] % block:
+        raise ValueError(f"S={q.shape[1]} is not a multiple of block={block}")
+    return _AttendBlocked.apply(q, k, v, causal, window, block)
 
 
 def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -42,11 +83,15 @@ def attend_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 def attn_forward(x: torch.Tensor, p: dict, cfg, layer_local: bool,
-                 positions: torch.Tensor, *, theta: float) -> Tuple[torch.Tensor, dict]:
-    """Sequence-mode attention (prefill). Returns (out, new_cache_entry).
+                 positions: torch.Tensor, *, theta: float,
+                 block: int = 512) -> Tuple[torch.Tensor, dict]:
+    """Sequence-mode attention (train/prefill). Returns (out, new_cache_entry).
 
     x: [B, S, D]. Cache entry: k/v [B, W, KV, hd] where W = window for local
-    layers (ring-placed) else S.
+    layers (ring-placed) else S. When autograd records (training), attention
+    is :func:`attend_blocked` over ``block``-row blocks (the single block S
+    where ``block`` does not divide S, as in the JAX package); otherwise the
+    serving call, B1 without its logsumexp.
     """
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -60,7 +105,12 @@ def attn_forward(x: torch.Tensor, p: dict, cfg, layer_local: bool,
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
     window = cfg.sliding_window if layer_local else 0
-    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        blk = min(block, S)
+        out = attend_blocked(q, k, v, causal=cfg.causal, window=window,
+                             block=blk if S % blk == 0 else S)
+    else:
+        out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
     y = out.reshape(B, S, H * hd) @ p["wo"]
     if layer_local and cfg.sliding_window and S > cfg.sliding_window:
         # last W tokens, placed at their ring slots (slot = pos % W)

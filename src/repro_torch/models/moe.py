@@ -30,8 +30,8 @@ reorder bf16 sums from run to run.
 The JAX package's capacity chunking (``GROUPS``) is not ported: it bounds
 the ``[B, E, C, D]`` buffers of the einsum form, which the sorted layout
 never builds, and it is 1 at every serving shape (``B*E*C*D*2`` is 0.79 MB
-at S32 for ``moonshot_v1_16b``). The load-balancing ``moe_aux_loss`` is a
-training loss and waits for the training slice.
+at S32 for ``moonshot_v1_16b``). :func:`moe_aux_loss` is the load-balancing
+loss of training.
 """
 from __future__ import annotations
 
@@ -142,3 +142,12 @@ def moe_forward(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     for j in range(1, e.top_k):
         y = y + contrib[rows[..., j]]
     return y[:, 0] if squeeze else y
+
+
+def moe_aux_loss(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch): E * sum(f_e * P_e), f_e the share
+    of tokens whose top-1 expert is e, P_e the mean router probability."""
+    E = cfg.moe.num_experts
+    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"].float(), dim=-1)
+    f = torch.nn.functional.one_hot(probs.argmax(-1), E).float().mean(0)
+    return E * (f * probs.mean(0)).sum()

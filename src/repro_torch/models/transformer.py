@@ -7,7 +7,15 @@ keys read like the JAX paths (``embed``, ``final_norm``, ``slots.0.wq``) and
 stack runs as a Python loop over periods (the JAX package scans it).
 
 Modes:
-* ``forward_seq`` / ``prefill`` — [B, S] tokens -> last-token logits + cache
+* ``forward_seq`` — [B, S] tokens -> final hidden states (+ cache); under
+  autograd the training forward, each period checkpointed when the config
+  asks for ``remat`` (``torch.utils.checkpoint``, as the JAX package wraps
+  its period in ``jax.remat``)
+* ``loss_fn`` — mean cross-entropy (+ the MoE auxiliary loss), as the JAX
+  function, over a dict of parameters: ``loss_fn(params, batch)`` with
+  ``params`` named as ``named_parameters`` (``slots.0.wq``), so a train step
+  differentiates the loss in the parameters it is given
+* ``prefill`` — [B, S] tokens -> last-token logits + cache, without grad
 * ``decode_step`` — one token per sequence against the cache, which it
   updates in place (the JAX function returns a new cache; the port writes
   one row per layer instead of copying the cache each step)
@@ -32,6 +40,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BLOCK_ATTN, ModelConfig
 from repro_torch.device import resolve_device
@@ -41,6 +50,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import ParamSpec, init_param, mlp, rms_norm, sinusoidal_pos
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+AUX_LOSS_COEF = 0.01
 
 
 @dataclass(frozen=True)
@@ -81,12 +91,15 @@ class LM(nn.Module):
     from ``seed`` with a ``torch.Generator`` on that device, so one seed gives
     the same weights on one device type and different weights on the CPU
     and the card: to compare the two, load one model's ``state_dict`` into
-    the other.
+    the other. ``attn_block`` is the block of the JAX package's blocked
+    attention, which the CPU's plain versions take when training.
     """
 
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
+                 attn_block: int = 512):
         super().__init__()
         self.cfg = cfg
+        self.attn_block = attn_block
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.dtype)
         self.period = self._period(cfg)
@@ -197,18 +210,37 @@ class LM(nn.Module):
                 for k in range(self.num_periods):
                     init_param(spec, gen, stacked[k])
 
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The parameters by name (``embed``, ``slots.0.wq``): the dict that
+        ``loss_fn`` and the train step take."""
+        return dict(self.named_parameters())
+
+    def _periods(self, params: Dict[str, torch.Tensor]) -> List[List[Dict[str, torch.Tensor]]]:
+        """Per period k, per slot, that slot's parameters' k-th slices."""
+        per_slot = [{name: params[f"slots.{s}.{name}"].unbind(0)
+                     for name, _ in slot.named_parameters()}
+                    for s, slot in enumerate(self.slots)]
+        return [[{n: t[k] for n, t in ps.items()} for ps in per_slot]
+                for k in range(self.num_periods)]
+
     # ------------------------------------------------------------------
     # Embedding and head
     # ------------------------------------------------------------------
-    def embed_input(self, batch) -> torch.Tensor:
-        x = self.embed[batch["tokens"].to(self.device)]
+    def embed_input(self, batch, params: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+        embed = self.embed if params is None else params["embed"]
+        x = embed[torch.as_tensor(batch["tokens"], device=self.device)]
         if not self.cfg.causal:
             x = x + sinusoidal_pos(x.shape[1], self.cfg.d_model, x.dtype, x.device)[None]
         return x
 
+    def _head(self, params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        if params is not None:
+            return params.get("unembed", params["embed"])
+        return self.unembed if self.unembed is not None else self.embed
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        head = self.unembed if self.unembed is not None else self.embed
-        return x @ head.T
+        return x @ self._head().T
 
     # ------------------------------------------------------------------
     # Blocks
@@ -226,7 +258,7 @@ class LM(nn.Module):
         h = rms_norm(x, p["norm1"], c.norm_eps)
         if sk.kind == BLOCK_ATTN:
             h, cache = attn_mod.attn_forward(h, p, c, sk.is_local, positions,
-                                             theta=sk.theta)
+                                             theta=sk.theta, block=self.attn_block)
         else:
             h, cache = mamba_mod.mamba_forward(h, p, c)
         x = x + h
@@ -252,27 +284,84 @@ class LM(nn.Module):
         return x, cache
 
     # ------------------------------------------------------------------
-    # Sequence mode (prefill)
+    # Sequence mode (train / prefill)
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def forward_seq(self, batch, *, want_cache: bool):
-        x = self.embed_input(batch)
+    def _period_seq(self, x, slot_params, positions):
+        caches = []
+        for p, sk in zip(slot_params, self.slot_kinds):
+            x, cache = self._block_seq(x, p, sk, positions)
+            caches.append(cache)
+        return x, caches
+
+    def forward_seq(self, batch, *, want_cache: bool,
+                    params: Optional[Dict[str, torch.Tensor]] = None):
+        """Final hidden states [B, S, D] (and, with ``want_cache``, the caches)
+        from the module's parameters or from ``params``. Under autograd this
+        is the training forward: attention goes through ``attend_blocked``,
+        and where ``cfg.remat`` asks for it (without caches) each period runs
+        under ``torch.utils.checkpoint``, so its activations are recomputed
+        in the backward, the attention kernel B1 included."""
+        use_remat = self.cfg.remat and not want_cache
+        P = self.params() if params is None else params
+        x = self.embed_input(batch, P)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
         per_period = []
-        for k in range(self.num_periods):
-            caches = []
-            for slot, sk in zip(self.slots, self.slot_kinds):
-                x, cache = self._block_seq(x, slot.period(k), sk, positions)
-                caches.append(cache)
-            per_period.append(caches)
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        for pk in self._periods(P):
+            if use_remat:
+                x = checkpoint(lambda xc, pk=pk: self._period_seq(xc, pk, positions)[0], x,
+                               use_reentrant=False)
+            else:
+                x, caches = self._period_seq(x, pk, positions)
+                per_period.append(caches)
+        x = rms_norm(x, P["final_norm"], self.cfg.norm_eps)
         if not want_cache:
             return x, None
         caches = [{name: torch.stack([pc[s][name] for pc in per_period])
                    for name in per_period[0][s]} for s in range(self.period)]
         return x, caches
 
+    def loss_fn(self, params: Dict[str, torch.Tensor], batch):
+        """Mean CE (+ MoE aux). batch: tokens, labels, optional loss_mask.
+        Returns (loss, {"ce", and "aux" for MoE configs}).
+
+        On the card a config with Mamba or MoE layers raises: the selective
+        scan (B3) and the grouped matmul (B4) have no backward kernel yet."""
+        c = self.cfg
+        if self.device.type == "cuda" and (c.mamba is not None or c.moe is not None):
+            raise NotImplementedError(
+                f"{c.name}: training on the card needs backward kernels for B3 (Mamba) and "
+                f"B4 (MoE), queued in ROADMAP.md; train it with device='cpu'")
+        x, _ = self.forward_seq(batch, want_cache=False, params=params)
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(labels.shape, device=self.device) if mask is None
+                else torch.as_tensor(mask, device=self.device).float())
+        head = self._head(params)
+        chunk = c.logits_chunk
+        if chunk and labels.shape[1] % chunk == 0 and labels.shape[1] > chunk:
+            loss_sum = _chunked_ce(x, head, labels, mask, chunk)
+        else:
+            loss_sum = -(_label_logprob(x, head, labels) * mask).sum()
+        loss = loss_sum / torch.clamp_min(mask.sum(), 1.0)
+        metrics = {"ce": loss}
+        if c.moe is not None:
+            # aux loss on the input embedding stream (cheap proxy over layers)
+            aux = self._aux_loss(params, batch)
+            metrics["aux"] = aux
+            loss = loss + AUX_LOSS_COEF * aux
+        return loss, metrics
+
+    def _aux_loss(self, params: Dict[str, torch.Tensor], batch) -> torch.Tensor:
+        x = self.embed_input(batch, params)
+        # first MoE slot, first period — representative balance signal
+        for s, sk in enumerate(self.slot_kinds):
+            if sk.is_moe:
+                return moe_mod.moe_aux_loss(x, {"router": params[f"slots.{s}.router"][0]},
+                                            self.cfg)
+        return torch.zeros((), device=self.device)
+
+    @torch.no_grad()
     def prefill(self, batch):
         """Returns (last-token logits [B, V], cache). The logits are taken at the
         padded end, x[:, -1], as in the JAX package."""
@@ -327,6 +416,24 @@ class LM(nn.Module):
         specs = self.cache_specs(batch_size, max_len)
         return {"slots": [{name: torch.zeros(sh, dtype=dt, device=self.device)
                            for name, (sh, dt) in s.items()} for s in specs["slots"]]}
+
+
+def _label_logprob(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """log_softmax(x @ head^T) at the labels; logits in x's type, then float32."""
+    lp = torch.log_softmax((x @ head.T).float(), dim=-1)
+    return torch.gather(lp, -1, labels[..., None])[..., 0]
+
+
+def _chunked_ce(x, head, labels, mask, chunk: int) -> torch.Tensor:
+    """Cross-entropy summed over the sequence without keeping full logits: each
+    chunk under ``torch.utils.checkpoint``, as the JAX package's scan body
+    under ``jax.remat``."""
+    tot = torch.zeros((), device=x.device)
+    for c0 in range(0, x.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        ll = checkpoint(_label_logprob, x[:, sl], head, labels[:, sl], use_reentrant=False)
+        tot = tot - (ll * mask[:, sl]).sum()
+    return tot
 
 
 def build_model(cfg: ModelConfig, **kw) -> LM:

@@ -1,14 +1,20 @@
-"""The framework's own optimizer, ported from the JAX package's
+"""The framework's own optimizers, ported from the JAX package's
 ``train/optimizer.py``.
 
-:class:`AdamW` is pure, as the reference's is: ``init(params) -> state`` and
+* :class:`AdamW` — decoupled weight decay, float32 math, moments kept in
+  ``state_dtype``.
+* :class:`Adafactor` — factored second moment for matrices (row and column
+  statistics of the last two axes), full statistics for vectors.
+* :class:`SGDM` — momentum SGD.
+
+All are pure, as the reference's are: ``init(params) -> state`` and
 ``update(grads, state, params) -> (new_params, new_state)`` on dicts of
-tensors (nested dicts too), with the reference's arithmetic: float32
-math whatever the parameters' type, moments kept in ``state_dtype``, the bias
-corrections ``1 - b**step``, eps outside the square root, and decoupled weight
-decay. It is not ``torch.optim.AdamW``, which keeps other defaults (b2 0.999,
-decay 1e-2) and updates in place. ``Adafactor`` and ``SGDM`` are not ported
-yet.
+tensors (nested dicts too), with the reference's arithmetic: float32 math
+whatever the parameters' type, the bias corrections ``1 - b**step``, eps
+outside the square root. They are not ``torch.optim``'s, which keep other
+defaults (AdamW: b2 0.999, decay 1e-2) and update in place. The JAX
+package's ``state_axes`` (the logical sharding axes of the state) has no
+counterpart: the port runs on one card.
 """
 from __future__ import annotations
 
@@ -19,10 +25,18 @@ import torch
 
 
 def _map(fn, *trees):
-    """``fn`` over the leaves of same-shaped trees of dicts."""
+    """``fn`` over the leaves of same-shaped trees of dicts; the first tree's
+    structure decides (a later tree may hold a dict at a leaf)."""
     if isinstance(trees[0], dict):
         return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
+
+
+def _step0(params) -> torch.Tensor:
+    leaf = params
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return torch.zeros((), dtype=torch.int32, device=leaf.device)
 
 
 @dataclass(frozen=True)
@@ -39,12 +53,8 @@ class AdamW:
 
     def init(self, params):
         dt = getattr(torch, self.state_dtype)
-        leaf = params
-        while isinstance(leaf, dict):
-            leaf = next(iter(leaf.values()))
         z = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
-        return {"step": torch.zeros((), dtype=torch.int32, device=leaf.device),
-                "m": _map(z, params), "v": _map(z, params)}
+        return {"step": _step0(params), "m": _map(z, params), "v": _map(z, params)}
 
     def update(self, grads, state, params):
         step = state["step"] + 1
@@ -67,3 +77,89 @@ class AdamW:
         pick = lambda i: _map(lambda o: o[i], out)
         return pick(0), {"step": step, "m": pick(1), "v": pick(2)}
 
+
+
+@dataclass(frozen=True)
+class Adafactor:
+    """Factored second-moment (Shazeer & Stern). Matrices store row/col stats
+    (O(n+m) instead of O(nm)); vectors fall back to full stats."""
+    lr: Callable | float = 1e-3
+    decay: float = 0.8
+    eps: float = 1e-30
+    clip_threshold: float = 1.0
+
+    def _lr(self, step):
+        return self.lr(step) if callable(self.lr) else self.lr
+
+    def init(self, params):
+        def z(p):
+            f32 = dict(dtype=torch.float32, device=p.device)
+            if p.dim() >= 2:
+                return {"r": torch.zeros(p.shape[:-1], **f32),
+                        "c": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
+            return {"v": torch.zeros(p.shape, **f32)}
+        return {"step": _step0(params), "stats": _map(z, params)}
+
+    def update(self, grads, state, params):
+        step = state["step"] + 1
+        lr = self._lr(step)
+        beta = 1.0 - step.to(torch.float32) ** -self.decay
+
+        def upd(g, s, p):
+            g32 = g.to(torch.float32)
+            g2 = g32 * g32 + self.eps
+            if g.dim() >= 2:
+                r = beta * s["r"] + (1 - beta) * g2.mean(-1)
+                c = beta * s["c"] + (1 - beta) * g2.mean(-2)
+                denom = torch.clamp_min(r.mean(-1, keepdim=True), self.eps)
+                v = (r[..., None] / denom[..., None]) * c[..., None, :]
+                ns = {"r": r, "c": c}
+            else:
+                v = beta * s["v"] + (1 - beta) * g2
+                ns = {"v": v}
+            u = g32 / torch.sqrt(v + self.eps)
+            norm = torch.sqrt((u * u).mean())
+            u = u / torch.clamp_min(norm / self.clip_threshold, 1.0)
+            return (p.to(torch.float32) - lr * u).to(p.dtype), ns
+
+        out = _map(upd, grads, state["stats"], params)
+        pick = lambda i: _map(lambda o: o[i], out)
+        return pick(0), {"step": step, "stats": pick(1)}
+
+
+@dataclass(frozen=True)
+class SGDM:
+    lr: Callable | float = 1e-2
+    momentum: float = 0.9
+
+    def _lr(self, step):
+        return self.lr(step) if callable(self.lr) else self.lr
+
+    def init(self, params):
+        z = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"step": _step0(params), "m": _map(z, params)}
+
+    def update(self, grads, state, params):
+        step = state["step"] + 1
+        lr = self._lr(step)
+
+        def upd(g, m, p):
+            m32 = self.momentum * m + g.to(torch.float32)
+            return (p.to(torch.float32) - lr * m32).to(p.dtype), m32
+
+        out = _map(upd, grads, state["m"], params)
+        pick = lambda i: _map(lambda o: o[i], out)
+        return pick(0), {"step": step, "m": pick(1)}
+
+
+def make_optimizer(name: str, lr, cfg=None):
+    if name == "auto" and cfg is not None:
+        name = getattr(cfg, "optimizer", "adamw")
+    if name == "adamw":
+        sd = cfg.opt_state_dtype if cfg is not None else "float32"
+        return AdamW(lr=lr, weight_decay=0.01, state_dtype=sd)
+    if name == "adafactor":
+        return Adafactor(lr=lr)
+    if name == "sgdm":
+        return SGDM(lr=lr)
+    raise ValueError(name)

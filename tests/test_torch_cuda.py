@@ -573,3 +573,125 @@ def test_card_fitted_ridge_drives_64_emulated_workers(card):
     sim, n, s = emulate.emulate(emulate.demo_store(), ridge, workers=64, rps=500,
                                 duration_s=1)
     assert s["n"] == n == len(sim.results) > 400 and s["fail_rate"] < 0.05
+
+
+# the training attention: phase 3's shapes of chip_smoke.py (train_100m's
+# microbatch, GQA, a window of 256), then ragged lengths, a bidirectional
+# mask and the other head dims
+TRAIN_ATTN_SHAPES = [
+    (4, 1024, 12, 12, 64, True, 0),
+    (4, 1024, 8, 2, 64, True, 0),
+    (4, 1024, 12, 12, 64, True, 256),
+    (2, 100, 4, 2, 32, True, 0),
+    (1, 96, 4, 4, 128, False, 0),
+    (1, 80, 4, 2, 256, True, 40),
+    (2, 64, 8, 8, 80, True, 0),
+    (1, 48, 4, 2, 96, False, 0),
+    (1, 33, 2, 1, 16, True, 0),
+]
+GRAD_TOL = {torch.float32: (1e-3, 1e-4),    # tests/test_attention.py:40
+            torch.bfloat16: (2e-2, 2e-2)}   # tests/test_kernels.py:18
+
+
+def _train_inputs(card, B, S, H, KV, hd, dtype):
+    gen = torch.Generator(device=card).manual_seed(S * H + hd)
+    return [_randn(gen, (B, S, n, hd), dtype, card) for n in (H, KV, KV, H)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", TRAIN_ATTN_SHAPES)
+def test_flash_lse_matches_plain(card, B, S, H, KV, hd, causal, window, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _train_inputs(card, B, S, H, KV, hd, dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    plain_out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    _, ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, S, KV, H // KV) and lse.dtype == torch.float32
+    assert torch.equal(out, plain_out)
+    torch.testing.assert_close(lse, ref, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", TRAIN_ATTN_SHAPES)
+def test_flash_bwd_kernel_matches_plain(card, B, S, H, KV, hd, causal, window, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    q, k, v, dout = _train_inputs(card, B, S, H, KV, hd, dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    n = fb.flash_attention_bwd.launches
+    got = fb.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fb.flash_attention_bwd.launches == n + 1
+    want = fb.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal, window=window,
+                                        block=256 if S % 256 == 0 else S)
+    rtol, atol = GRAD_TOL[dtype]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_is_bit_equal_on_two_calls(card, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    q, k, v, dout = _train_inputs(card, 4, 1024, 8, 2, 64, dtype)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    a = fb.flash_attention_bwd(q, k, v, out, lse, dout)
+    b = fb.flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_attend_blocked_on_the_card_matches_the_cpu(card):
+    """The autograd path (B1 with lse, B1b) against the plain blocked versions
+    on the CPU, f32, a strided dout."""
+    from repro_torch.models.attention import attend_blocked
+    q, k, v, dout = _train_inputs(card, 2, 128, 8, 2, 64, torch.float32)
+    grads = {}
+    for dev in (card, "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = attend_blocked(*leaves, causal=True, window=48, block=32)
+        d = torch.cat([dout, dout], -1).to(dev)[..., ::2]
+        grads[str(dev)] = [out, *torch.autograd.grad(out, leaves, d)]
+    for g, c in zip(grads[str(card)], grads["cpu"]):
+        torch.testing.assert_close(g.detach().cpu(), c.detach(), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "moonshot_v1_16b"])
+def test_loss_fn_on_the_card_raises_for_mamba_and_moe(card, arch):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import LM
+    lm = LM(reduced(get_config(arch)), device=card)
+    toks = torch.zeros((1, 8), dtype=torch.int64, device=card)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm.loss_fn(lm.params(), {"tokens": toks, "labels": toks})
+
+
+def test_train_steps_on_the_card_match_the_cpu(card):
+    """Two f32 AdamW steps of a reduced train_100m with accumulation, card
+    against CPU: losses and parameters within 2e-3."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import LM
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import make_train_step
+    cfg = replace(reduced(get_config("train_100m")), dtype="float32")
+    gpu = LM(cfg, device=card, seed=3, attn_block=16)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4))
+    out = {}
+    for name, lm in (("gpu", gpu), ("cpu", cpu)):
+        opt = AdamW(lr=1e-3)
+        params = {n: p.detach() for n, p in lm.params().items()}
+        state, step, losses = opt.init(params), make_train_step(lm, opt, accum=2), []
+        for i in range(2):
+            params, state, m = step(params, state, stream.batch(i))
+            losses.append(float(m["loss"]))
+        out[name] = (losses, params)
+    np.testing.assert_allclose(out["gpu"][0], out["cpu"][0], rtol=2e-3, atol=2e-3)
+    for n, p in out["cpu"][1].items():
+        torch.testing.assert_close(out["gpu"][1][n].cpu(), p, rtol=2e-3, atol=2e-3, msg=n)
