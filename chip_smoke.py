@@ -709,8 +709,9 @@ def _check_train_attention():
                      for a, b in zip(got, want))
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             print(f"[kernels] flash_attention_bwd {label} B{B} S{S} H{H} KV{KV} hd{hd} "
-                  f"causal={causal} window={window} {dname}: max_abs_err dq {errs[0]:.3e} "
-                  f"dk {errs[1]:.3e} dv {errs[2]:.3e} (rtol {rtol:g} atol {atol:g}); two calls "
+                  f"causal={causal} window={window} {dname} ({fb.ROUTES[dtype]}): max_abs_err "
+                  f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (rtol {rtol:g} "
+                  f"atol {atol:g}); two calls "
                   f"bit-equal: {same} {'ok' if ok and same else 'FAIL'}")
             check(ok, f"flash_attention_bwd {label} {dname} disagrees with its plain version")
             check(same, f"flash_attention_bwd {label} {dname} is not deterministic")
@@ -759,6 +760,31 @@ def _time_flash_bwd(fa, fb, args, causal, window, dname, err):
           f"without {_ms(device_ms(without, wrapper=fa.flash_attention))} with "
           f"{_ms(device_ms(with_lse, wrapper=fa.flash_attention))}; kernel_ms without "
           f"{time_ms(without):.4f} with {time_ms(with_lse):.4f}")
+    # B1 with its logsumexp beside its plain version, its bound and the library
+    # call that also returns the logsumexp (causal only, no GQA: timed where
+    # the shape allows it); q, k, v read and out and lse written once, two
+    # products of 2*hd operations per visible pair
+    lse_plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                 return_lse=True)
+    lse_lib = lse_lib_err = None
+    if not window and H == KV:
+        qc, kc, vc = (t.detach().contiguous() for t in (qt, kt, vt))
+        lse_lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            qc, kc, vc, 0.0, causal)
+        lib_lse = lse_lib()[1].transpose(1, 2)                     # [B,H,S] -> [B,S,H]
+        lse_lib_err = (lib_lse.reshape(lse.shape) - lse).abs().max().item()
+    b_ms, b_by = bound_ms((2 * q.numel() + 2 * k.numel()) * q.element_size() + lse.numel() * 4,
+                          4.0 * hd * pairs * B * H, dname)
+    lr = {"ms": time_ms(with_lse), "device_ms": device_ms(with_lse, wrapper=fa.flash_attention),
+          "plain_ms": time_ms(lse_plain, iters=20),
+          "plain_device_ms": device_ms(lse_plain, iters=10),
+          "library_ms": time_ms(lse_lib) if lse_lib else None,
+          "library_device_ms": device_ms(lse_lib) if lse_lib else None}
+    print(f"[kernels] flash_attention with lse at {BWD_LINE} {dname}: ms {lr['ms']:.4f}, "
+          f"device ms {_ms(lr['device_ms'])}, bound {b_ms:.4f} ({b_by}), plain ms "
+          f"{lr['plain_ms']:.4f} (device {_ms(lr['plain_device_ms'])}), "
+          f"_scaled_dot_product_flash_attention ms {_ms(lr['library_ms'])} (device "
+          f"{_ms(lr['library_device_ms'])}; its lse max_abs_err {lse_lib_err})")
     return r
 
 
@@ -1578,9 +1604,13 @@ def _train_steady(cfg, warm=2, timed=5, profiled=3):
           f"{8 * 1024 / wall:.0f} tokens/s; device time by kernel, per step:")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[train]   {ms / profiled:8.3f} ms {ms / profiled / busy:6.1%}  {name[:90]}")
-    for kernel in ("bwd_dq_kernel", "bwd_dkdv_kernel", "flash_fwd_tc_kernel"):
+    from repro_torch.kernels.flash_attention_bwd import KERNELS
+    bwd = [n for names in KERNELS.values() for n in names]    # B1b, both routes
+    for kernel in (*bwd, "flash_fwd_tc_kernel"):
         ms = sum(v for k, v in by_name.items() if kernel in k) / profiled
         print(f"[train]   {ms:8.3f} ms {ms / busy:6.1%}  {kernel} (port)")
+    ms = sum(v for k, v in by_name.items() if any(n in k for n in bwd)) / profiled
+    print(f"[train]   {ms:8.3f} ms {ms / busy:6.1%}  B1b in all")
 
 
 def _train_parity(steps=3):

@@ -47,15 +47,22 @@ class ControlPlane:
         self.placement_records: List[str] = []   # start/reap/idle events
         self.routing_records: List[str] = []     # arrival/reroute choices
         self.gateway_records: List[str] = []     # front-door verdicts
+        # the exact ``sim.now`` of each line above (the lines print it to
+        # the microsecond): the partitioned runner merges on these
+        self.placement_times: List[float] = []
+        self.routing_times: List[float] = []
+        self.gateway_times: List[float] = []
 
     # ------------------------------------------------------- decision logs
     def log_placement(self, kind: str, w, fn: str) -> None:
         cap = "inf" if w.memory_mb is None else f"{w.memory_mb:.0f}"
+        self.placement_times.append(self.sim.now)
         self.placement_records.append(
             f"t={self.sim.now:.6f} {kind} fn={fn} worker={w.name} "
             f"mem={w.memory_used_mb:.0f}/{cap} inst={w.total_instances}")
 
     def log_routing(self, kind: str, req, wid: str) -> None:
+        self.routing_times.append(self.sim.now)
         self.routing_records.append(
             f"t={self.sim.now:.6f} {kind} rid={req.rid} fn={req.fn} "
             f"worker={wid}")
@@ -66,6 +73,7 @@ class ControlPlane:
         return "\n".join(self.placement_records)
 
     def log_gateway(self, kind: str, req, verdict) -> None:
+        self.gateway_times.append(self.sim.now)
         self.gateway_records.append(
             f"t={self.sim.now:.6f} {kind} rid={req.rid} fn={req.fn} "
             f"verdict={verdict or 'admit'}")

@@ -131,11 +131,13 @@ class FaultInjector:
         # RNG, which is what keeps faults-off runs byte-identical
         self.rng = random.Random(f"faults-{self.cfg.seed}")
         self.records: List[str] = []
+        self.times: List[float] = []        # the exact sim.now of each record
         self.stats = FaultStats()
         self._straggle_prior: dict = {}     # worker -> pre-episode slowdown
 
     # -------------------------------------------------------------- logging
     def _log(self, line: str) -> None:
+        self.times.append(self.sim.now)
         self.records.append(f"t={self.sim.now:.6f} {line}")
 
     def fault_log(self) -> str:

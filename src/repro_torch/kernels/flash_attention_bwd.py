@@ -15,6 +15,17 @@ type before their products). It is deterministic: a dq pass per q tile that
 also writes ``D = rowsum(dO * O)``, then a dk/dv pass per kv tile over the q
 tiles that can see it; each output is written by one block, without
 atomics, so two calls give the same bits. It takes contiguous tensors only.
+The route follows the type (:data:`ROUTES`; :data:`KERNELS` names the CUDA
+kernels each launches):
+
+- bfloat16, the training path: the products on the tensor cores
+  (``mma.sync``, bf16 operands, float32 sums), each warp owning 16 rows of
+  its pass's output so that p and ds go from one product's accumulators
+  into the next one's operands in registers; Q/dO or K/V tiles streamed
+  through ``cp.async`` rings; masks only on the tiles that need one. Its
+  tensors must be 16-byte aligned.
+- float32: a float32 FMA loop out of shared memory, exact to the JAX
+  package's float32 tolerance.
 
 Beside it, the plain versions, ported from the JAX package over the same
 block pairs: :func:`attend_fwd_plain` (``_attend_fwd_impl``: the blocked
@@ -37,6 +48,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import _DTYPES, HEAD_DIMS, NEG_INF
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# the kernel's route for each type it takes (csrc/flash_attention_bwd.cu
+# dispatches on it), and the CUDA kernels of each, dq pass first
+ROUTES = {torch.float32: "float32 FMA", torch.bfloat16: "bf16 tensor cores (mma.sync)"}
+KERNELS = {torch.float32: ("bwd_dq_kernel", "bwd_dkdv_kernel"),
+           torch.bfloat16: ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel")}
 
 
 def _block_pairs(nq: int, nkv: int, *, causal: bool, window_blocks: int) -> np.ndarray:
@@ -174,6 +190,9 @@ def _check(q, k, v, out, lse, dout):
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash_attention_bwd takes contiguous q, k, v, out, lse and dout")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("bfloat16 q, k, v, out and dout must be 16-byte aligned (the "
+                         "tensor-core route's 16-byte copies)")
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,

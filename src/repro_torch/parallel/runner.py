@@ -40,9 +40,11 @@ Two synchronization regimes:
 
 Merge determinism: every per-partition stream is nondecreasing in time,
 so a k-way merge keyed ``(t, partition, position)`` is a total order
-independent of process scheduling; same seed + same partition count ⇒
-byte-identical merged output, and ``stream_digest`` applies to a
-:class:`MergedRun` exactly as to a :class:`Simulator`.
+independent of process scheduling (``t`` exact, for the decision and
+fault logs too: each layer keeps the time of each line beside it); same
+seed + same partition count ⇒ byte-identical merged output, and
+``stream_digest`` applies to a :class:`MergedRun` exactly as to a
+:class:`Simulator`.
 """
 from __future__ import annotations
 
@@ -75,12 +77,16 @@ def _collect(sim, mode: str, sink) -> dict:
     if sim.gateway is not None:
         counters["gw_admitted"] = sim.gateway.admitted_total
         counters["gw_shed"] = sim.gateway.shed_total
+    control, faults = sim.control, sim.faults
+    # each log's lines beside the exact times they were written at
     payload = {
         "counters": counters,
-        "fault_log": sim.fault_log(),
-        "placement": list(sim.placement_records),
-        "routing": list(sim.routing_records),
-        "gateway": list(sim.gateway_records),
+        "fault": ([], []) if faults is None else (list(faults.records),
+                                                  list(faults.times)),
+        "placement": (list(control.placement_records),
+                      list(control.placement_times)),
+        "routing": (list(control.routing_records), list(control.routing_times)),
+        "gateway": (list(control.gateway_records), list(control.gateway_times)),
     }
     if sink is not None:
         payload["part"] = sink.part()
@@ -231,14 +237,15 @@ def _merge_stream(parts: List[list], key) -> list:
     return [e[3] for e in heapq.merge(*runs)]
 
 
-def _line_t(line: str) -> float:
-    """Timestamp of one decision/fault log line — every record layer
-    writes ``t=<float> ...`` as its prefix."""
-    return float(line[2:line.index(" ", 2)])
-
-
-def _merge_lines(parts: List[List[str]]) -> List[str]:
-    return _merge_stream(parts, _line_t)
+def _merge_lines(parts: List[tuple]) -> List[str]:
+    """k-way merge of per-partition decision/fault logs, each given as
+    ``(lines, times)``, on the exact time each line was written. The
+    lines print that time only to the microsecond (``t=%.6f``), so two
+    records of different partitions within one microsecond would tie on
+    it and fall to partition order, out of the serial run's order; the
+    JAX package's runner merges on the printed time and has that fault."""
+    timed = [list(zip(times, lines)) for lines, times in parts]
+    return [line for _, line in _merge_stream(timed, lambda e: e[0])]
 
 
 def _merge_counters(parts: List[dict]) -> dict:
@@ -280,8 +287,7 @@ class MergedRun:
             [p["placement"] for p in payloads])
         self.routing_records = _merge_lines([p["routing"] for p in payloads])
         self.gateway_records = _merge_lines([p["gateway"] for p in payloads])
-        self._fault_lines = _merge_lines(
-            [p["fault_log"].splitlines() for p in payloads])
+        self._fault_lines = _merge_lines([p["fault"] for p in payloads])
         if collect == "full":
             self.results = _merge_stream(
                 [p["results"] for p in payloads], lambda r: r.finish_t)

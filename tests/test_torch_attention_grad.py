@@ -166,3 +166,25 @@ def test_block_pairs_and_masks_are_the_jax_package_s():
         np.testing.assert_array_equal(
             fb._pair_mask(i, j, 8, causal, window, "cpu").numpy(),
             np.asarray(JA._pair_mask(i, j, 8, causal, window)))
+
+
+def test_b1b_routes_by_type_and_names_its_kernels():
+    """B1b takes bfloat16 through the tensor cores and float32 through the FMA
+    loop; each route names the two CUDA kernels it launches (the names the
+    profiler shows, none inside another), each defined in the source; a CPU
+    tensor of either type is refused before any check, build or launch."""
+    from repro_torch.kernels import build
+    assert set(fb.ROUTES) == set(fb.KERNELS) == set(fb._DTYPES) == {torch.float32,
+                                                                   torch.bfloat16}
+    assert "tensor cores" in fb.ROUTES[torch.bfloat16] and "FMA" in fb.ROUTES[torch.float32]
+    names = [n for dtype in fb.KERNELS for n in fb.KERNELS[dtype]]
+    assert len(set(names)) == 4 and all(len(fb.KERNELS[d]) == 2 for d in fb.KERNELS)
+    assert not any(a != b and a in b for a in names for b in names)
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert all(f"{n}(" in src for n in names)
+    for dtype in fb.ROUTES:
+        q = torch.zeros(1, 17, 2, 18, dtype=dtype)[..., 2:]     # rows off 16 bytes
+        lse = torch.zeros(1, 17, 1, 2)
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            fb.flash_attention_bwd(q, q[:, :, :1], q[:, :, :1], q, lse, q)
+    assert fb.flash_attention_bwd.launches == 0

@@ -695,3 +695,95 @@ def test_train_steps_on_the_card_match_the_cpu(card):
     np.testing.assert_allclose(out["gpu"][0], out["cpu"][0], rtol=2e-3, atol=2e-3)
     for n, p in out["cpu"][1].items():
         torch.testing.assert_close(out["gpu"][1][n].cpu(), p, rtol=2e-3, atol=2e-3, msg=n)
+
+
+def _kernels_run(fn):
+    """The CUDA kernels ``fn`` launches, by the names the profiler shows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+def _bwd_against_plain(card, B, S, H, KV, hd, causal, window, dtype):
+    """B1b against its plain version (one block of S rows, any S); returns the
+    kernels the call launched."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    q, k, v, dout = _train_inputs(card, B, S, H, KV, hd, dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    args = (q, k, v, out, lse, dout)
+    got = fb.flash_attention_bwd(*args, causal=causal, window=window)
+    want = fb.flash_attention_bwd_plain(*args, causal=causal, window=window, block=S)
+    torch.cuda.synchronize()
+    rtol, atol = GRAD_TOL[dtype]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol, msg=name)
+    return _kernels_run(lambda: fb.flash_attention_bwd(*args, causal=causal, window=window))
+
+
+def _assert_route(ran, dtype):
+    from repro_torch.kernels import flash_attention_bwd as fb
+    for other, kernels in fb.KERNELS.items():
+        for name in kernels:
+            assert any(name in n for n in ran) == (other == dtype), (name, sorted(ran))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 96, 128, 256])
+def test_flash_bwd_bf16_takes_the_tensor_cores_at_every_head_dim(card, hd):
+    """Every head dim of the JAX configs, GQA, S not a multiple of a tile:
+    right, and through the tensor-core kernels only."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+    assert hd in fb.HEAD_DIMS
+    _assert_route(_bwd_against_plain(card, 2, 130, 4, 2, hd, True, 0, torch.bfloat16),
+                  torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
+    (2, 200, 8, 2, 64, True, 70),       # GQA, window, ragged
+    (1, 130, 4, 4, 128, False, 0),      # bidirectional, ragged
+    (2, 200, 4, 1, 96, False, 50),      # bidirectional with a window, G = 4
+    (1, 130, 6, 2, 80, True, 33),
+    (1, 200, 4, 2, 256, False, 0),      # the dk/dv column halves
+    (2, 130, 4, 2, 16, True, 0),
+    (1, 64, 2, 1, 32, True, 16),        # whole tiles, a window under a tile
+    (1, 1, 2, 2, 64, True, 0),          # one row
+])
+def test_flash_bwd_bf16_tiles_match_plain(card, B, S, H, KV, hd, causal, window):
+    _assert_route(_bwd_against_plain(card, B, S, H, KV, hd, causal, window, torch.bfloat16),
+                  torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bwd_bf16_is_bit_equal_on_two_calls(card, hd):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    q, k, v, dout = _train_inputs(card, 2, 512, 8, 2, hd, torch.bfloat16)
+    out, lse = fa.flash_attention(q, k, v, window=100, return_lse=True)
+    a = fb.flash_attention_bwd(q, k, v, out, lse, dout, window=100)
+    b = fb.flash_attention_bwd(q, k, v, out, lse, dout, window=100)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_bwd_f32_still_takes_the_fma_kernels(card, hd):
+    _assert_route(_bwd_against_plain(card, 1, 130, 4, 2, hd, True, 0, torch.float32),
+                  torch.float32)
+
+
+def test_flash_bwd_bf16_refuses_unaligned_tensors(card):
+    from repro_torch.kernels import flash_attention_bwd as fb
+    q, k, v, dout = _train_inputs(card, 1, 64, 2, 1, 64, torch.bfloat16)
+    lse = torch.zeros(1, 64, 1, 2, device=card)
+    off = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)[1:].view(q.shape)
+    n = fb.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fb.flash_attention_bwd(off, k, v, q, lse, dout)
+    assert fb.flash_attention_bwd.launches == n
