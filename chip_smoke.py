@@ -68,7 +68,31 @@ imports nothing of JAX. Phases, each of which fails the run:
    20 steps, then a run resumed from its step-10 checkpoint, whose losses
    at steps 11-20 must equal the first run's bit for bit; and 3 f32 train
    steps of ``train_100m`` cut to 2 layers at full width on the card against
-   the same weights on the CPU, losses and parameters within 2e-3.
+   the same weights on the CPU, losses and parameters within 2e-3;
+9. engine: the port's ``Engine`` serves 8 requests of ``gemma3_12b`` (c=2,
+   ``max_len`` 2048) at full width and depth (48 layers, hd 256, window 1024,
+   5 local layers to 1 global, bfloat16) with prompts of 1100-1500 tokens,
+   so every local layer's ring of 1024 wraps: B1 on every layer of every
+   prefill (windowed and global) and B2 on every layer of every decode step
+   (the rings by the split route), as reckoned; cold start, each prefill's
+   time (the first long one apart), decode tokens/s, a decode step's wall
+   against device time, peak memory;
+10. ``phi3_vision`` at full width and depth (bfloat16): ``LM.prefill`` of 2
+   sequences of 576 patch embeddings and 64 tokens, finite logits that move
+   when the patch embeddings move, then 4 greedy decode steps against a
+   ``SlotCache``; B1 at hd 96 and B2 as reckoned;
+11. train: ``hubert_xlarge`` at full width and depth (48 layers, d_model
+   1280, bidirectional, bfloat16, f32 AdamW state) through the port's
+   trainer, 10 steps on one batch of 8 x 1024 frames with labels and a loss
+   mask in 4 microbatches: the loss falls, B1 (with its logsumexp, hd 80)
+   and B1b launch the reckoned counts; steady step ms (wall, device),
+   tokens/s, peak memory.
+
+Phase 7 also holds, in f32 card vs CPU within 2e-3: ``gemma3_12b`` cut to
+one period (5 local layers, 1 global) at full width, a prompt of 1100
+tokens (the rings wrap) and 4 decode steps; ``phi3_vision`` cut to 2 layers
+at full width with its patch embeddings; 3 train steps of ``hubert_xlarge``
+cut to 2 layers at full width.
 
 Phase 3 also holds B1's logsumexp (within 2e-4 in f32, 2e-2 in bf16) and
 the flash backward B1b (dq, dk, dv within rtol 1e-3, atol 1e-4 in f32, the
@@ -77,8 +101,8 @@ versions at ``train_100m``'s microbatch, a GQA and a windowed shape, with
 B1b's times beside the backward of ``scaled_dot_product_attention``
 through autograd (timed here only) and B1's cost of writing the logsumexp.
 
-Between the engine phases the image cache is emptied, so that the card
-holds one large image at a time.
+Between the engine phases, and before phases 9-11, the image cache is
+emptied, so that the card holds one large image at a time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -91,6 +115,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -160,6 +185,12 @@ FLASH_HD_CASES = [
     ("phi3 S32", 1, 32, 32, 32, 96, True, 0),
     ("phi3 S256", 1, 256, 32, 32, 96, True, 0),
     ("hubert S256", 1, 256, 16, 16, 80, False, 0),
+    # phase 9's prefills (prompts of 1100-1500 tokens bucket to 2048): the
+    # local layers' window of 1024 and the global layers; phase 10's prefill
+    # of 576 patch embeddings and 64 tokens in a batch of 2
+    ("gemma3 S2048", 1, 2048, 16, 8, 256, True, 0),
+    ("gemma3 local S2048", 1, 2048, 16, 8, 256, True, 1024),
+    ("phi3 B2 S640", 2, 640, 32, 32, 96, True, 0),
 ]
 # (label, B, W, H, KV, hd, ring): the engine's decodes (B = slots, W = max_len)
 # and the JAX sweep (tests/test_kernels.py:44-48)
@@ -180,7 +211,14 @@ DECODE_HD_CASES = [
     ("gemma3 local c2 W1024 ring", 2, 1024, 16, 8, 256, True),
     ("phi3 c2 W64", 2, 64, 32, 32, 96, False),
     ("hubert-shaped c2 W64", 2, 64, 16, 16, 80, False),
+    # phase 9's global layers (max_len 2048) and phase 10's decode (a
+    # SlotCache of 1024 after a prefill of 640)
+    ("gemma3 global c2 W2048", 2, 2048, 16, 8, 256, False),
+    ("phi3 c2 W1024", 2, 1024, 32, 32, 96, False),
 ]
+# the decode positions of those two cases: phase 9's prompts of 1100-1500
+# tokens, phase 10's 640 and its 4 steps (the others draw theirs below)
+DECODE_POS = {"gemma3 global c2 W2048": (1100, 1505), "phi3 c2 W1024": (640, 644)}
 # (label, Bt, S, DI, N): falcon_mamba_7b's prefills (prompts bucketed to 16/32,
 # 64 and 256 for longer ones), float32 with a non-zero h0 as mamba_forward
 # calls it, and the JAX sweep (tests/test_kernels.py:63-67) in both types
@@ -220,6 +258,9 @@ TRAIN_ATTN_CASES = [
     ("train_100m microbatch", 4, 1024, 12, 12, 64, True, 0),
     ("GQA H8 KV2", 4, 1024, 8, 2, 64, True, 0),
     ("window 256", 4, 1024, 12, 12, 64, True, 256),
+    # phase 11: hubert_xlarge's microbatch (8 sequences of 1024 frames in 4
+    # microbatches), bidirectional at hd 80
+    ("hubert microbatch", 2, 1024, 16, 16, 80, False, 0),
 ]
 TRAIN_BLOCK = 256        # the plain versions' block: launch/train.py's max(64, seq // 4)
 # the shapes the kernels line reports: the engine's commonest calls
@@ -228,6 +269,7 @@ DECODE_LINE = "tiny_lm c4 W64"
 MAMBA_LINE = "falcon_mamba_7b S32"
 GMM_LINE = "moonshot decode c2 wg/wi"    # 2 of B4's 3 calls per layer of a decode step
 BWD_LINE = "train_100m microbatch"
+BWD_TIMED = (BWD_LINE, "hubert microbatch")     # B1b (and B1 with lse) timed at these
 
 
 class SmokeError(RuntimeError):
@@ -428,6 +470,8 @@ def phase_kernels():
             rng = np.random.default_rng(B * W + H)
             if label.startswith("sweep"):
                 pos = rng.integers(5, W * 2 if ring else W, B)
+            elif label in DECODE_POS:
+                pos = rng.integers(*DECODE_POS[label], B)
             elif ring:   # a local layer's ring, wrapped
                 pos = rng.integers(W, 2 * W, B)
             else:   # the engine's decode positions: prompt bucket + a few tokens
@@ -715,13 +759,13 @@ def _check_train_attention():
                   f"bit-equal: {same} {'ok' if ok and same else 'FAIL'}")
             check(ok, f"flash_attention_bwd {label} {dname} disagrees with its plain version")
             check(same, f"flash_attention_bwd {label} {dname} is not deterministic")
-            if label == BWD_LINE and dname == "bfloat16":
+            if label in BWD_TIMED and dname == "bfloat16":
                 rows[("flash_attention_bwd", label, dname)] = _time_flash_bwd(
-                    fa, fb, args, causal, window, dname, max(errs))
+                    fa, fb, args, causal, window, dname, max(errs), label)
     return rows
 
 
-def _time_flash_bwd(fa, fb, args, causal, window, dname, err):
+def _time_flash_bwd(fa, fb, args, causal, window, dname, err, label):
     import torch
     import torch.nn.functional as F
     q, k, v, out, lse, dout = args
@@ -756,7 +800,7 @@ def _time_flash_bwd(fa, fb, args, causal, window, dname, err):
     with_lse = lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
                                           return_lse=True)
     without = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
-    print(f"[kernels] flash_attention at {BWD_LINE} {dname}: the logsumexp's cost, device ms "
+    print(f"[kernels] flash_attention at {label} {dname}: the logsumexp's cost, device ms "
           f"without {_ms(device_ms(without, wrapper=fa.flash_attention))} with "
           f"{_ms(device_ms(with_lse, wrapper=fa.flash_attention))}; kernel_ms without "
           f"{time_ms(without):.4f} with {time_ms(with_lse):.4f}")
@@ -780,7 +824,7 @@ def _time_flash_bwd(fa, fb, args, causal, window, dname, err):
           "plain_device_ms": device_ms(lse_plain, iters=10),
           "library_ms": time_ms(lse_lib) if lse_lib else None,
           "library_device_ms": device_ms(lse_lib) if lse_lib else None}
-    print(f"[kernels] flash_attention with lse at {BWD_LINE} {dname}: ms {lr['ms']:.4f}, "
+    print(f"[kernels] flash_attention with lse at {label} {dname}: ms {lr['ms']:.4f}, "
           f"device ms {_ms(lr['device_ms'])}, bound {b_ms:.4f} ({b_by}), plain ms "
           f"{lr['plain_ms']:.4f} (device {_ms(lr['plain_device_ms'])}), "
           f"_scaled_dot_product_flash_attention ms {_ms(lr['library_ms'])} (device "
@@ -1243,12 +1287,16 @@ def phase_platform(ridge, mlp, X):
           f"{[ln for ln in refused.splitlines() if 'CUDA' in ln][-1].strip()}")
 
 
-def _serve_image(arch, fn, tag, n_req=8):
-    """``n_req`` requests of one large image (c=2, ``max_len`` 64, 4 generated
-    tokens) through the Engine, prompt sizes and run points drawn as in
-    phase 4's mix. Every launch count is set to 0 just before and read just
-    after, and the model's prefill and decode_step calls are counted.
-    Returns (engine, instances, launches, calls)."""
+def _serve_image(arch, fn, tag, n_req=8, max_len=64, prompt=(4, 24)):
+    """``n_req`` requests of one large image (c=2, 4 generated tokens) through
+    an Engine of ``max_len``, prompt sizes drawn from ``prompt`` (low,
+    high) and run points as in phase 4's mix. Every launch count is set to 0
+    just before and read just after; the model's prefill and decode_step
+    calls are counted and timed (each to a synchronize, which the engine
+    makes right after anyway: it reads the next token on the host), and the
+    attention calls tallied by kind. Returns (engine, instances, launches,
+    calls, kinds, timed): ``timed`` maps each call kind to its (tokens in,
+    seconds) in order, the instance's warm-up included."""
     import numpy as np
     import torch
 
@@ -1263,39 +1311,47 @@ def _serve_image(arch, fn, tag, n_req=8):
     store = ConfigStore()
     store.put(FunctionConfig(name=fn, arch=arch, concurrency=2, gen_tokens=4,
                              idle_timeout_s=60.0))
-    engine = Engine(build_tree(2, fanout=2), store, ImageRegistry(), max_len=64,
+    engine = Engine(build_tree(2, fanout=2), store, ImageRegistry(), max_len=max_len,
                     device="cuda")
     rng = np.random.default_rng(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
     calls = {"prefill": 0, "decode_step": 0}
+    timed = {name: [] for name in calls}
     originals = {name: getattr(LM, name) for name in calls}
 
     def counted(name):
         def call(self, *a, **kw):
             calls[name] += 1
-            return originals[name](self, *a, **kw)
+            t = time.perf_counter()
+            out = originals[name](self, *a, **kw)
+            torch.cuda.synchronize()
+            batch = a[-1]
+            n = batch["tokens"].shape[1] if "tokens" in batch else batch["token"].shape[0]
+            timed[name].append((n, time.perf_counter() - t))
+            return out
         return call
 
     wrappers = _wrappers()
     for name in calls:
         setattr(LM, name, counted(name))
     try:
-        for w in wrappers.values():
-            w.launches = 0
-        t0 = time.perf_counter()
-        reqs, results = [], []
-        for _ in range(n_req):
-            req = Request(fn=fn, arrival_t=0.0, size=int(rng.integers(4, 24)))
-            reqs.append(req)
-            engine.submit(req)
-            if rng.random() < 0.4:
-                results.extend(engine.run())
-        results.extend(engine.run())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: w.launches for name, w in wrappers.items()}
+        with _attention_kinds() as kinds:
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            reqs, results = [], []
+            for _ in range(n_req):
+                req = Request(fn=fn, arrival_t=0.0, size=int(rng.integers(*prompt)))
+                reqs.append(req)
+                engine.submit(req)
+                if rng.random() < 0.4:
+                    results.extend(engine.run())
+            results.extend(engine.run())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: w.launches for name, w in wrappers.items()}
     finally:
         for name, f in originals.items():
             setattr(LM, name, f)
@@ -1325,19 +1381,55 @@ def _serve_image(arch, fn, tag, n_req=8):
     print(f"[{tag}] device memory: max_memory_allocated {peak / 2**30:.2f} GiB "
           f"(allocated before the phase {mem0 / 2**30:.2f} GiB)")
     print(f"[{tag}] model calls {calls}; kernel launches {launches}")
-    return engine, insts, launches, calls
+    print(f"[{tag}] attention calls on the card by kind: {kinds}")
+    return engine, insts, launches, calls, kinds, timed
 
 
-def _time_model_calls(inst, tag):
+@contextmanager
+def _attention_kinds():
+    """Tally the model's attention calls on the card by kind (B1: head dim and
+    mask; B2: head dim, cache width, ring or not, and the route the wrapper
+    takes); the wrappers' launch counts stay the count of record."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+
+    kinds = {}
+    flash0, decode0 = ops.flash_attention, ops.decode_attention
+
+    def tally(key):
+        kinds[key] = kinds.get(key, 0) + 1
+
+    def flash(q, k, v, *, causal=True, window=0):
+        if q.is_cuda:
+            mask = f"window {window}" if window else "causal" if causal else "bidirectional"
+            tally(f"B1 hd{q.shape[-1]} {mask}")
+        return flash0(q, k, v, causal=causal, window=window)
+
+    def decode(q, k_cache, v_cache, positions, *, ring=False):
+        if q.is_cuda:
+            B, W, KV, hd = k_cache.shape
+            route = dec.decode_route(B, KV, W, hd, q.element_size())[0]
+            tally(f"B2 hd{hd} W{W} {'ring' if ring else 'no ring'} {route}")
+        return decode0(q, k_cache, v_cache, positions, ring=ring)
+
+    ops.flash_attention, ops.decode_attention = flash, decode
+    try:
+        yield kinds
+    finally:
+        ops.flash_attention, ops.decode_attention = flash0, decode0
+
+
+def _time_model_calls(inst, tag, prefill_len=32):
     """One model call of each kind on the image's weights, after the counts
     were read: host wall per call (CUDA events) against device time."""
     import torch
     tok = torch.zeros(inst.slots, dtype=torch.int32, device="cuda")
     step = lambda: inst.model.decode_step(inst.kv.cache, {"token": tok,
                                                           "pos": inst.kv.positions()})
-    prompt = torch.zeros((1, 32), dtype=torch.int32, device="cuda")
+    prompt = torch.zeros((1, prefill_len), dtype=torch.int32, device="cuda")
     prefill = lambda: inst.model.prefill({"tokens": prompt})
-    for name, fn in ((f"decode step ({inst.slots} slots)", step), ("prefill S32", prefill)):
+    for name, fn in ((f"decode step ({inst.slots} slots)", step),
+                     (f"prefill S{prefill_len}", prefill)):
         wall_ms, dev_ms = time_ms(fn, iters=10, warmup=2), device_ms(fn, iters=5)
         print(f"[{tag}] {name}: {wall_ms:.2f} ms per call, device {_ms(dev_ms)} ms "
               f"(busy {dev_ms / wall_ms:.1%})" if dev_ms else
@@ -1348,7 +1440,7 @@ def phase_engine_mamba():
     """falcon_mamba_7b at full width and depth in bfloat16 through the Engine."""
     from repro_torch.core.types import Request
 
-    engine, insts, launches, _ = _serve_image("falcon_mamba_7b", "ssm-gen", "engine-ssm")
+    engine, insts, launches, *_ = _serve_image("falcon_mamba_7b", "ssm-gen", "engine-ssm")
     check(launches["mamba_scan"] > 0, "the engine never launched mamba_scan")
     check(launches["flash_attention"] == launches["decode_attention"]
           == launches["grouped_matmul"] == 0,
@@ -1366,7 +1458,8 @@ def phase_engine_moe():
     from repro_torch.configs import get_config
     from repro_torch.core.types import Request
 
-    engine, insts, launches, calls = _serve_image("moonshot_v1_16b", "moe-gen", "engine-moe")
+    engine, insts, launches, calls, *_ = _serve_image("moonshot_v1_16b", "moe-gen",
+                                                      "engine-moe")
     layers = get_config("moonshot_v1_16b").num_layers
     want = 3 * layers * (calls["prefill"] + calls["decode_step"])
     print(f"[engine-moe] grouped_matmul launches {launches['grouped_matmul']} = 3 x {layers} "
@@ -1382,6 +1475,212 @@ def phase_engine_moe():
                     ("gmm_tc_kernel", "flash_fwd_tc_kernel", "decode_kernel",
                      "decode_combine_kernel"))
     return {"grouped_matmul": launches["grouped_matmul"]}
+
+
+def phase_engine_gemma3():
+    """gemma3_12b at full width and depth in bfloat16 through the Engine:
+    ``max_len`` 2048, prompts of 1100-1500 tokens (bucketed to 2048), so
+    every local layer's cache is a ring of 1024 that wraps. B1 must run on
+    every layer of every prefill, windowed (40 layers) and global (8); B2 on
+    every layer of every decode step, the local rings by the split route."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import Request
+
+    cfg = get_config("gemma3_12b")
+    engine, insts, launches, calls, kinds, timed = _serve_image(
+        "gemma3_12b", "gemma-gen", "engine-gemma3", max_len=2048, prompt=(1100, 1501))
+    layers, W, hd = cfg.num_layers, cfg.sliding_window, cfg.head_dim
+    local = sum(cfg.is_local_attn(i) for i in range(layers))
+    pf, dc = calls["prefill"], calls["decode_step"]
+    want = {f"B1 hd{hd} window {W}": local * pf, f"B1 hd{hd} causal": (layers - local) * pf,
+            f"B2 hd{hd} W{W} ring split": local * dc,
+            f"B2 hd{hd} W2048 no ring split": (layers - local) * dc}
+    print(f"[engine-gemma3] reckoned: B1 {layers} layers x {pf} prefills ({local} windowed, "
+          f"{layers - local} global), B2 {layers} layers x {dc} decode steps: {want}")
+    check(kinds == want, f"attention calls by kind {kinds}, not the reckoned {want}")
+    check(launches["flash_attention"] == layers * pf
+          and launches["decode_attention"] == layers * dc,
+          f"B1/B2 launched {launches['flash_attention']}/{launches['decode_attention']} "
+          f"times, not {layers * pf}/{layers * dc}")
+    check(launches["mamba_scan"] == launches["grouped_matmul"] == 0,
+          "a Mamba or MoE kernel ran in gemma3_12b")
+    warm, *served = timed["prefill"]
+    check(warm[0] == 16 and all(n == 2048 for n, _ in served),
+          f"prefill lengths {[n for n, _ in timed['prefill']]}: not the warm-up's 16, then 2048")
+    print(f"[engine-gemma3] prefills (tokens, s): warm-up {warm[0]} {warm[1]:.3f} s, the first "
+          f"long prefill (the first call at its bucket) {served[0][1]:.3f} s, the rest "
+          f"{[round(t, 3) for _, t in served[1:]]}")
+    steps = timed["decode_step"][1:]               # the warm-up's decode step apart
+    gen = 4 * len(served)                          # each request's 4 decoded tokens
+    dec_s = sum(t for _, t in steps)
+    print(f"[engine-gemma3] decode: {gen} tokens in {len(steps)} steps of "
+          f"{insts[0].slots} slots, {dec_s:.3f} s of decode steps: "
+          f"{gen / dec_s:.1f} tokens/s, {dec_s / len(steps) * 1e3:.1f} ms a step")
+    _time_model_calls(insts[0], "engine-gemma3", prefill_len=2048)
+    _profile_engine(engine, Request, "gemma-gen", "gemma3_12b", (1100, 1250, 1400, 1500),
+                    ("flash_fwd_tc_kernel", "decode_kernel", "decode_combine_kernel"))
+    return {}
+
+
+def phase_phi3_vision(B=2, S=640, max_len=1024, steps=4):
+    """phi3_vision at full width and depth in bfloat16: ``LM.prefill`` of a
+    batch of 2 whose first 576 positions are patch embeddings (drawn from a
+    seeded generator) and whose tokens fill the sequence to 640; the same
+    prefill with every patch embedding moved by 1.0 must give other logits;
+    then 4 greedy ``decode_step``s against a ``SlotCache`` holding both rows.
+    B1 at hd 96 once per layer per prefill, B2 once per layer per step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.models import LM
+    from repro_torch.serving.engine import weight_seed
+    from repro_torch.serving.kv_cache import SlotCache
+
+    cfg = get_config("phi3_vision")
+    P, D, L = cfg.num_patches, cfg.d_model, cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    lm = LM(cfg, device="cuda", seed=weight_seed(cfg.name))
+    torch.cuda.synchronize()
+    materialize = time.perf_counter() - t
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    patches = torch.randn((B, P, D), generator=gen, device="cuda").to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    wrappers = _wrappers()
+    with _attention_kinds() as kinds:
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        logits, pcache = lm.prefill({"tokens": tokens, "patch_embeds": patches})
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+        moved, _ = lm.prefill({"tokens": tokens, "patch_embeds": patches + 1.0})
+        kv = SlotCache(lm, B, max_len)
+        for b in range(B):
+            kv.admit(b, {"slots": [{n: c[:, b:b + 1] for n, c in sl.items()}
+                                   for sl in pcache["slots"]]}, S, b, steps)
+        out, lg = [], logits
+        for _ in range(steps):
+            tok = lg.argmax(-1).to(torch.int32)
+            out.append(tok)
+            lg, kv.cache = lm.decode_step(kv.cache, {"token": tok, "pos": kv.positions()})
+            check(bool(torch.isfinite(lg.float()).all()), "phi3_vision decode logits not finite")
+            kv.advance()
+        torch.cuda.synchronize()
+        launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == (B, cfg.vocab_size) and bool(torch.isfinite(logits.float()).all()),
+          f"phi3_vision prefill logits {tuple(logits.shape)} not finite")
+    diff = (moved.float() - logits.float()).abs().max().item()
+    check(diff > 0, "moving the patch embeddings left the logits as they were")
+    hd = cfg.head_dim
+    route = dec.decode_route(B, cfg.num_kv_heads, max_len, hd, 2)[0]
+    want = {f"B1 hd{hd} causal": 2 * L, f"B2 hd{hd} W{max_len} no ring {route}": steps * L}
+    check(kinds == want and launches["flash_attention"] == 2 * L
+          and launches["decode_attention"] == steps * L,
+          f"attention calls {kinds}, launches {launches}: not the reckoned {want}")
+    check(launches["mamba_scan"] == launches["grouped_matmul"] == 0,
+          "a Mamba or MoE kernel ran in phi3_vision")
+    print(f"[phi3] phi3_vision {cfg.dtype}, {L} layers, {cfg.param_count() / 1e9:.2f} B "
+          f"parameters, materialized in {materialize:.3f} s; prefill of B{B} S{S} ({P} patch "
+          f"embeddings + {S - P} tokens) {first:.3f} s (its first call); logits finite, moved "
+          f"by up to {diff:.3e} when the patch embeddings move by 1.0; {steps} greedy decode "
+          f"steps, tokens {torch.stack(out, 1).tolist()}")
+    print(f"[phi3] kernel launches {launches}; by kind {kinds} (reckoned {want}); peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+    prefill = lambda: lm.prefill({"tokens": tokens, "patch_embeds": patches})
+    step = lambda: lm.decode_step(kv.cache, {"token": out[-1], "pos": kv.positions()})
+    for name, fn in ((f"decode step ({B} slots, W{max_len})", step),
+                     (f"prefill B{B} S{S}", prefill)):
+        wall_ms, dev_ms = time_ms(fn, iters=10, warmup=2), device_ms(fn, iters=5)
+        print(f"[phi3] {name}: {wall_ms:.2f} ms per call, device "
+              + (f"{dev_ms:.2f} ms (busy {dev_ms / wall_ms:.1%})" if dev_ms else "not measured"))
+    return {}
+
+
+def phase_train_hubert(steps=10, batch=8, seq=1024, profiled=2):
+    """hubert_xlarge at full width and depth in bfloat16 through the port's
+    trainer (AdamW, f32 state, ``remat`` as the config has it, its 4
+    microbatches): 10 steps on one fixed batch of 8 x 1024 frames with
+    labels and a loss mask, drawn from a seeded generator. The loss falls;
+    B1 with its logsumexp runs twice per layer per microbatch (remat's
+    recompute) and B1b once."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = get_config("hubert_xlarge")
+    micro = cfg.grad_accum
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device="cuda", seed=0)
+    opt = make_optimizer("adamw", warmup_cosine(1e-3, 2, steps), cfg)
+    params = {n: p.detach() for n, p in lm.params().items()}
+    state, step = opt.init(params), make_train_step(lm, opt)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    data = {"frames": torch.randn((batch, seq, cfg.d_model), generator=gen,
+                                  device="cuda").to(torch.bfloat16),
+            "labels": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                                    device="cuda"),
+            "loss_mask": (torch.rand((batch, seq), generator=gen, device="cuda") < 0.8).float()}
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    losses, took = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        params, state, m = step(params, state, data)
+        losses.append(float(m["loss"]))           # to the host: the step has ended
+        took.append(time.perf_counter() - t)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = np.asarray(losses)
+    check(np.isfinite(losses).all(), f"hubert losses {losses}")
+    first, last = losses[:3].mean(), losses[-3:].mean()
+    print(f"[train-hubert] hubert_xlarge {cfg.dtype}, {cfg.num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, {steps} steps of {batch} x {seq} frames "
+          f"({micro} microbatches): loss {losses[0]:.4f} -> {losses[-1]:.4f}, mean of the "
+          f"first 3 {first:.4f}, of the last 3 {last:.4f}; losses {np.round(losses, 4).tolist()}")
+    check(last < first, f"the loss did not fall: first 3 {first:.4f}, last 3 {last:.4f}")
+    fwd = cfg.num_layers * micro * steps
+    want = {"flash_attention": 2 * fwd, "flash_attention_bwd": fwd, "decode_attention": 0,
+            "mamba_scan": 0, "grouped_matmul": 0}
+    print(f"[train-hubert] kernel launches {launches}; reckoned: B1 (with lse) "
+          f"{cfg.num_layers} layers x {micro} microbatches x {steps} steps x 2 (remat) = "
+          f"{2 * fwd}, B1b {fwd}")
+    check(launches == want, f"launches {launches} are not the reckoned {want}")
+    steady = float(np.mean(took[2:]))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            params, state, m = step(params, state, data)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values()) / profiled
+    print(f"[train-hubert] steady step (steps 3-{steps}): {steady * 1e3:.1f} ms wall, "
+          f"{busy:.1f} ms device ({busy / (steady * 1e3):.1%} busy), "
+          f"{batch * seq / steady:.0f} tokens/s; first step {took[0] * 1e3:.1f} ms; peak "
+          f"device memory {peak / 2**30:.2f} GiB; device time by kernel, per step:")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[train-hubert]   {ms / profiled:8.3f} ms {ms / profiled / busy:6.1%}  {name[:90]}")
+    from repro_torch.kernels.flash_attention_bwd import KERNELS
+    bwd = [n for names in KERNELS.values() for n in names]
+    for label, names in (("B1b", bwd), ("B1", ["flash_fwd"])):
+        ms = sum(v for k, v in by_name.items() if any(n in k for n in names)) / profiled
+        print(f"[train-hubert]   {ms:8.3f} ms {ms / busy:6.1%}  {label} (port)")
+    return {}
 
 
 def release_images():
@@ -1424,6 +1723,8 @@ def _profile_engine(engine, Request, fn, arch, sizes, port_kernels):
 
 
 def phase_parity():
+    import numpy as np
+
     from repro_torch.configs import get_config, reduced
 
     _parity(replace(get_config("tiny_lm"), dtype="float32"), "tiny_lm")
@@ -1434,12 +1735,26 @@ def phase_parity():
             "falcon_mamba_7b (2 layers, full width)")
     _parity(replace(get_config("moonshot_v1_16b"), dtype="float32", num_layers=2),
             "moonshot_v1_16b (2 layers, full width)")
+    # gemma3_12b cut to one period (5 local layers, 1 global) at full width:
+    # a prompt of 1100 tokens wraps the local rings of 1024, then 4 steps
+    gemma = get_config("gemma3_12b")
+    _parity(replace(gemma, dtype="float32", num_layers=gemma.swa_period),
+            "gemma3_12b (one period of 6 layers, full width)", B=1, S0=1100, W=2048)
+    # phi3_vision cut to 2 layers at full width: 576 patch embeddings and 64
+    # tokens, as phase 10 prefills them
+    phi3 = replace(get_config("phi3_vision"), dtype="float32", num_layers=2)
+    patches = np.random.default_rng(4).standard_normal(
+        (2, phi3.num_patches, phi3.d_model)).astype(np.float32)
+    _parity(phi3, "phi3_vision (2 layers, full width, patches)", S0=640, W=1024,
+            extra={"patch_embeds": patches})
+    _train_parity_hubert()
 
 
-def _parity(cfg, label, B=2, S0=16, W=32, steps=4):
+def _parity(cfg, label, B=2, S0=16, W=32, steps=4, extra=None):
     """The f32 model on the card (kernels) against the same weights on the CPU
     (plain versions): logits and greedy tokens at every step, then every
-    cache tensor (k/v, or the conv window and the SSM state)."""
+    cache tensor (k/v, or the conv window and the SSM state). ``extra``:
+    further prefill inputs (numpy), as patch embeddings."""
     import copy
 
     import numpy as np
@@ -1451,8 +1766,11 @@ def _parity(cfg, label, B=2, S0=16, W=32, steps=4):
     cpu = copy.deepcopy(gpu).to("cpu")  # the card's weights: the CPU would draw others
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S0)).astype(np.int32)
     caches, logits = {}, {}
+    t0 = time.perf_counter()
     for name, lm in (("gpu", gpu), ("cpu", cpu)):
-        lg, pc = lm.prefill({"tokens": torch.as_tensor(toks, device=lm.device)})
+        batch = {k: torch.as_tensor(v, device=lm.device)
+                 for k, v in {"tokens": toks, **(extra or {})}.items()}
+        lg, pc = lm.prefill(batch)
         cache = lm.init_cache(B, W)
         for cs, ps in zip(cache["slots"], pc["slots"]):
             for n in cs:
@@ -1482,8 +1800,9 @@ def _parity(cfg, label, B=2, S0=16, W=32, steps=4):
             check(torch.allclose(g, cs[n].float(), rtol=LOGIT_TOL, atol=LOGIT_TOL),
                   f"{label} f32 cache {n!r} after {steps} decode steps: max_abs_err {e:.3e}")
     errs = " ".join(f"{n} {e:.3e}" for n, e in cache_err.items())
-    print(f"[parity] {label} f32 prefill + {steps} decode steps, card vs CPU: logits "
-          f"max_abs_err {worst:.3e}, caches {errs} (tol {LOGIT_TOL:g}), greedy tokens equal")
+    print(f"[parity] {label} f32 prefill of B{B} S{S0} + {steps} decode steps (cache width "
+          f"{W}), card vs CPU: logits max_abs_err {worst:.3e}, caches {errs} (tol "
+          f"{LOGIT_TOL:g}), greedy tokens equal; {time.perf_counter() - t0:.1f} s")
 
 
 TRAIN_ARGS = ["--arch", "train_100m", "--seq", "1024", "--batch", "8", "--accum", "2",
@@ -1617,32 +1936,58 @@ def _train_parity(steps=3):
     """3 f32 train steps of train_100m cut to 2 layers at full width, on the
     card (B1, B1b) and on the CPU (the plain versions) from the same weights
     and batches: each step's loss, then every parameter."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+
+    cfg = replace(get_config("train_100m"), dtype="float32", num_layers=2)
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=4,
+                                    seed=0))
+    _train_parity_of(cfg, "train_100m", [stream.batch(i) for i in range(steps)],
+                     "4 x 256 tokens")
+
+
+def _train_parity_hubert(steps=3, B=4, S=256):
+    """Phase 7's training case: hubert_xlarge cut to 2 layers at full width,
+    3 f32 steps on frames with labels and a loss mask drawn from a numpy seed."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = replace(get_config("hubert_xlarge"), dtype="float32", num_layers=2)
+    rng = np.random.default_rng(6)
+    batches = [{"frames": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32),
+                "labels": rng.integers(0, cfg.vocab_size, (B, S)),
+                "loss_mask": (rng.random((B, S)) < 0.8).astype(np.float32)}
+               for _ in range(steps)]
+    _train_parity_of(cfg, "hubert_xlarge", batches, f"{B} x {S} frames")
+
+
+def _train_parity_of(cfg, name, batches, what):
+    """f32 train steps of ``cfg`` on the card (B1, B1b) and on the CPU (the
+    plain versions) from the same weights and batches (AdamW, 2
+    microbatches): each step's loss, then every parameter, within 2e-3."""
     import copy
 
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, TokenStream
     from repro_torch.models import LM
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.schedule import warmup_cosine
     from repro_torch.train.trainer import make_train_step
 
-    cfg = replace(get_config("train_100m"), dtype="float32", num_layers=2)
+    steps = len(batches)
     gpu = LM(cfg, device="cuda", seed=11, attn_block=64)
     cpu = copy.deepcopy(gpu).to("cpu")   # the card's weights: the CPU would draw others
-    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=4,
-                                    seed=0))
     runs = {}
-    for name, lm in (("gpu", gpu), ("cpu", cpu)):
+    for dev, lm in (("gpu", gpu), ("cpu", cpu)):
         opt = make_optimizer("adamw", warmup_cosine(3e-3, 20, steps), cfg)
         params = {n: p.detach() for n, p in lm.params().items()}
         state, step, losses = opt.init(params), make_train_step(lm, opt, accum=2), []
         t = time.perf_counter()
-        for i in range(steps):
-            params, state, m = step(params, state, stream.batch(i))
+        for batch in batches:
+            params, state, m = step(params, state, batch)
             losses.append(float(m["loss"]))
-        runs[name] = (losses, params, time.perf_counter() - t)
+        runs[dev] = (losses, params, time.perf_counter() - t)
     (gl, gp, gs), (cl, cp, cs) = runs["gpu"], runs["cpu"]
     loss_err = max(abs(a - b) for a, b in zip(gl, cl))
     check(all(abs(a - b) <= TRAIN_TOL * (1 + abs(b)) for a, b in zip(gl, cl)),
@@ -1654,8 +1999,8 @@ def _train_parity(steps=3):
         check(torch.allclose(g, c, rtol=TRAIN_TOL, atol=TRAIN_TOL),
               f"parameter {n} after {steps} steps: card vs CPU max_abs_err "
               f"{(g - c).abs().max().item():.3e}")
-    print(f"[train] parity: train_100m cut to 2 layers at full width, f32, {steps} steps of "
-          f"4 x 256 tokens (2 microbatches), card vs CPU: losses {[round(x, 6) for x in gl]}, "
+    print(f"[train] parity: {name} cut to 2 layers at full width, f32, {steps} steps of "
+          f"{what} (2 microbatches), card vs CPU: losses {[round(x, 6) for x in gl]}, "
           f"max_abs_err {loss_err:.3e}; parameters max_abs_err {param_err:.3e} (tol "
           f"{TRAIN_TOL:g}); {gs:.2f} s on the card, {cs:.2f} s on the CPU")
 
@@ -1689,6 +2034,12 @@ def main() -> int:
     release_images()
     timed("parity", phase_parity)
     launches.update(timed("train", phase_train))
+    release_images()
+    timed("engine gemma3_12b", phase_engine_gemma3)
+    release_images()
+    timed("phi3_vision", phase_phi3_vision)
+    release_images()
+    timed("train hubert_xlarge", phase_train_hubert)
 
     kernels = []
     for name, label, dname, replaces, source in (

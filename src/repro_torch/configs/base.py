@@ -2,11 +2,12 @@
 
 Its own copy of the JAX package's ``configs/base.py`` (the port imports
 nothing of that package): :class:`ModelConfig` with its layer pattern and
-exact ``param_count``, the registry, and ``reduced`` for small test models.
-Every config of the JAX package is registered (the simulator's ``fn_cost``
-reads each one's ``param_count``); the input-shape table of the dry run is
-not ported yet. Configs are plain frozen dataclasses, so a JAX config moves
-to the port through ``to_json``/``from_json``.
+exact ``param_count``, the assigned input shapes (:data:`SHAPES`, which
+of them each arch runs), the registry, and ``reduced`` for small test
+models. Every config of the JAX package is registered (the simulator's
+``fn_cost`` reads each one's ``param_count``). Configs are plain frozen
+dataclasses, so a JAX config moves to the port through
+``to_json``/``from_json``.
 """
 from __future__ import annotations
 
@@ -183,6 +184,43 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (assigned; identical set for every LM arch)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                          # train | prefill | decode | long_decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "long_decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def applicable_shapes(cfg: ModelConfig) -> dict:
+    """Which assigned shapes run for this arch; value = None (runs) or skip reason."""
+    out = {}
+    for s in SHAPES.values():
+        reason = None
+        if not cfg.causal and s.mode in ("decode", "long_decode"):
+            reason = "encoder-only: no decode step"
+        elif s.mode == "long_decode" and not _subquadratic(cfg):
+            reason = "pure full-attention arch: long_500k needs sub-quadratic attention"
+        out[s.name] = reason
+    return out
+
+
+def _subquadratic(cfg: ModelConfig) -> bool:
+    return cfg.attention_free or cfg.mamba is not None or cfg.sliding_window > 0
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -205,11 +243,20 @@ def list_configs() -> Sequence[str]:
     return sorted(_REGISTRY)
 
 
+_ASSIGNED = [
+    "hubert_xlarge", "deepseek_coder_33b", "mistral_large_123b", "gemma3_12b",
+    "qwen3_32b", "moonshot_v1_16b", "grok1_314b", "jamba15_large",
+    "falcon_mamba_7b", "phi3_vision",
+]
+
+
+def assigned_archs() -> Sequence[str]:
+    return list(_ASSIGNED)
+
+
 def _load_all() -> None:
     import importlib
-    for mod in ("hyperfaas_demo", "falcon_mamba_7b", "moonshot_v1_16b", "jamba15_large",
-                "grok1_314b", "gemma3_12b", "qwen3_32b", "deepseek_coder_33b",
-                "mistral_large_123b", "phi3_vision", "hubert_xlarge"):
+    for mod in _ASSIGNED + ["hyperfaas_demo"]:
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

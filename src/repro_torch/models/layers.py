@@ -1,11 +1,14 @@
 """Core layers and parameter specs, ported from the JAX package's ``models/layers.py``.
 
-Params are described once by :class:`ParamSpec`; :func:`init_param` fills a
-parameter that already lies on its device, in its dtype, from a
-``torch.Generator`` on that device (float32 draws, then the cast), so a
-7B-parameter model is drawn on the card and never staged in host memory. A
-seed gives the same weights on one device type in every process; the CPU's
-and the card's generators give different weights.
+Params are described once by :class:`ParamSpec` trees (shape, logical axes,
+initializer); :func:`init_param` fills a parameter that already lies on its
+device, in its dtype, from a ``torch.Generator`` on that device (float32
+draws, then the cast), so a 7B-parameter model is drawn on the card and
+never staged in host memory. A seed gives the same weights on one device
+type in every process; the CPU's and the card's generators give different
+weights. :func:`build_abstract` and :func:`build_axes` derive the dry run's
+trees from the same specs: tensors on the ``meta`` device (no storage) and
+the logical axis names of every dimension.
 
 The primitive layers are plain functions on tensors and keep the JAX
 package's rounding order, so the two agree in bf16 as well as in f32.
@@ -25,8 +28,33 @@ import torch.nn.functional as F
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]      # logical axis name per dim (w_* names)
     init: str = "normal"                 # normal | zeros | ones | mamba_a | mamba_dt
     scale: float = 1.0                   # fan-in style scale for "normal"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
+
+
+def _map_specs(fn, specs):
+    """``fn`` applied to every ParamSpec of a tree of dicts and lists."""
+    if isinstance(specs, ParamSpec):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    return [_map_specs(fn, v) for v in specs]
+
+
+def build_abstract(specs, dtype: torch.dtype):
+    """The spec tree as tensors on the ``meta`` device: shapes and a dtype, no
+    storage (a 314B-parameter tree allocates nothing)."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), specs)
+
+
+def build_axes(specs):
+    """The spec tree's logical axis names, one tuple per parameter."""
+    return _map_specs(lambda s: s.axes, specs)
 
 
 def init_param(spec: ParamSpec, gen: torch.Generator,

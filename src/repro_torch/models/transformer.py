@@ -6,8 +6,14 @@ keys read like the JAX paths (``embed``, ``final_norm``, ``slots.0.wq``) and
 ``repro_torch.bridge`` copies a JAX params tree in name by name. The layer
 stack runs as a Python loop over periods (the JAX package scans it).
 
+Inputs, as the JAX ``embed_input`` takes them: ``tokens``; for the
+``patches`` frontend (phi3_vision) also ``patch_embeds`` [B, P, D], projected
+by ``patch_proj`` into the first P positions; for the ``frames`` frontend
+(hubert_xlarge) ``frames`` [B, S, D] in place of tokens, with no embedding
+table. Non-causal inputs get sinusoidal positions added.
+
 Modes:
-* ``forward_seq`` — [B, S] tokens -> final hidden states (+ cache); under
+* ``forward_seq`` — [B, S] inputs -> final hidden states (+ cache); under
   autograd the training forward, each period checkpointed when the config
   asks for ``remat`` (``torch.utils.checkpoint``, as the JAX package wraps
   its period in ``jax.remat``)
@@ -15,13 +21,18 @@ Modes:
   function, over a dict of parameters: ``loss_fn(params, batch)`` with
   ``params`` named as ``named_parameters`` (``slots.0.wq``), so a train step
   differentiates the loss in the parameters it is given
-* ``prefill`` — [B, S] tokens -> last-token logits + cache, without grad
+* ``prefill`` — [B, S] inputs -> last-token logits + cache, without grad
 * ``decode_step`` — one token per sequence against the cache, which it
   updates in place (the JAX function returns a new cache; the port writes
   one row per layer instead of copying the cache each step)
 
 Attention and Mamba slots, each with a dense MLP or an MoE layer after it,
-are ported; the audio/vision frontends raise ``NotImplementedError``.
+and both frontends are ported.
+
+The dry run's model surface needs no model: :func:`param_specs`,
+:func:`abstract_params` (tensors on the ``meta`` device), :func:`param_axes`
+and :func:`input_specs` are functions of the config, and ``LM``'s methods of
+those names call them with its own.
 
 Parameters are allocated on the target device in the model's dtype and drawn
 there, one period slice at a time, from a generator on that device: a 28B
@@ -42,12 +53,13 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import BLOCK_ATTN, ModelConfig
+from repro_torch.configs.base import BLOCK_ATTN, ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import ParamSpec, init_param, mlp, rms_norm, sinusoidal_pos
+from repro_torch.models.layers import (ParamSpec, build_abstract, build_axes, init_param, mlp,
+                                       rms_norm, sinusoidal_pos)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 AUX_LOSS_COEF = 0.01
@@ -63,6 +75,131 @@ class SlotKind:
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def period_of(cfg: ModelConfig) -> int:
+    """The LCM of the arch's interleave patterns (jamba 8, gemma3 6, else 1)."""
+    p = 1
+    if cfg.mamba is not None and not cfg.attention_free:
+        p = math.lcm(p, cfg.attn_every)
+    if cfg.moe is not None:
+        p = math.lcm(p, cfg.moe.every)
+    if cfg.sliding_window > 0:
+        p = math.lcm(p, cfg.swa_period)
+    return p
+
+
+def slot_kinds(cfg: ModelConfig) -> List[SlotKind]:
+    out = []
+    for s in range(period_of(cfg)):
+        local = cfg.is_local_attn(s)
+        theta = 10000.0 if cfg.sliding_window and local else cfg.rope_theta
+        out.append(SlotKind(cfg.block_kind(s), cfg.is_moe_layer(s), local, theta))
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The JAX package's parameter tree, as ParamSpecs with their logical axes:
+    ``embed`` (not for ``frames``), ``unembed`` (``frames`` and untied configs),
+    ``patch_proj`` (``patches``), ``final_norm``, and per period slot its
+    parameters stacked over the K = L / P periods."""
+    c = cfg
+    K, D = c.num_layers // period_of(c), c.d_model
+    specs: dict = {}
+    if c.frontend != "frames":
+        specs["embed"] = ParamSpec((c.vocab_size, D), ("w_vocab", "w_embed"))
+    if c.frontend == "frames" or not c.tie_embeddings:
+        specs["unembed"] = ParamSpec((c.vocab_size, D), ("w_vocab", "w_embed"))
+    if c.frontend == "patches":
+        specs["patch_proj"] = ParamSpec((D, D), ("w_embed", None))
+    specs["final_norm"] = ParamSpec((D,), (None,), init="zeros")
+    H, KV, hd = c.num_heads, c.num_kv_heads, c.head_dim
+    slot_specs = []
+    for sk in slot_kinds(c):
+        ps = {"norm1": ParamSpec((K, D), ("w_layers", None), init="zeros")}
+        if sk.kind == BLOCK_ATTN:
+            ps["wq"] = ParamSpec((K, D, H * hd), ("w_layers", "w_embed", "w_qdim"))
+            ps["wk"] = ParamSpec((K, D, KV * hd), ("w_layers", "w_embed", "w_kvdim"))
+            ps["wv"] = ParamSpec((K, D, KV * hd), ("w_layers", "w_embed", "w_kvdim"))
+            ps["wo"] = ParamSpec((K, H * hd, D), ("w_layers", "w_qdim", "w_embed"))
+            if c.qk_norm:
+                ps["q_norm"] = ParamSpec((K, hd), ("w_layers", None), init="zeros")
+                ps["k_norm"] = ParamSpec((K, hd), ("w_layers", None), init="zeros")
+        else:
+            m = c.mamba
+            DI = m.d_inner
+            ps["in_x"] = ParamSpec((K, D, DI), ("w_layers", "w_embed", "w_dinner"))
+            ps["in_z"] = ParamSpec((K, D, DI), ("w_layers", "w_embed", "w_dinner"))
+            ps["conv_w"] = ParamSpec((K, m.d_conv, DI), ("w_layers", None, "w_dinner"))
+            ps["conv_b"] = ParamSpec((K, DI), ("w_layers", "w_dinner"), init="zeros")
+            ps["x_proj"] = ParamSpec((K, DI, m.dt_rank + 2 * m.d_state),
+                                     ("w_layers", "w_dinner", None))
+            ps["dt_proj"] = ParamSpec((K, m.dt_rank, DI), ("w_layers", None, "w_dinner"))
+            ps["dt_bias"] = ParamSpec((K, DI), ("w_layers", "w_dinner"), init="mamba_dt")
+            ps["A_log"] = ParamSpec((K, DI, m.d_state), ("w_layers", "w_dinner", "w_state"),
+                                    init="mamba_a")
+            ps["D"] = ParamSpec((K, DI), ("w_layers", "w_dinner"), init="ones")
+            ps["out_proj"] = ParamSpec((K, DI, D), ("w_layers", "w_dinner", "w_embed"))
+        ps["norm2"] = ParamSpec((K, D), ("w_layers", None), init="zeros")
+        if sk.is_moe:
+            E, F = c.moe.num_experts, c.moe.expert_ff
+            ps["router"] = ParamSpec((K, D, E), ("w_layers", "w_embed", None))
+            for name in ("moe_wi", "moe_wg"):
+                ps[name] = ParamSpec((K, E, D, F),
+                                     ("w_layers", "w_expert", "w_embed", "w_moe_mlp"))
+            ps["moe_wo"] = ParamSpec((K, E, F, D),
+                                     ("w_layers", "w_expert", "w_moe_mlp", "w_embed"))
+        elif c.d_ff > 0:
+            ps["wi"] = ParamSpec((K, D, c.d_ff), ("w_layers", "w_embed", "w_mlp"))
+            if c.gated_mlp:
+                ps["wg"] = ParamSpec((K, D, c.d_ff), ("w_layers", "w_embed", "w_mlp"))
+            ps["wo_mlp"] = ParamSpec((K, c.d_ff, D), ("w_layers", "w_mlp", "w_embed"))
+        slot_specs.append(ps)
+    specs["slots"] = slot_specs
+    return specs
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors in the config's dtype: no storage."""
+    return build_abstract(param_specs(cfg), torch_dtype(cfg.dtype))
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The parameter tree's logical axis names (``w_*``), one tuple a tensor."""
+    return build_axes(param_specs(cfg))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """(batch specs, batch axes) of an assigned shape: ``meta`` tensors of the
+    batch's shapes and dtypes, and each one's logical axes (``act_*``)."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = torch_dtype(cfg.dtype)
+
+    def meta(sh, dtype):
+        return torch.empty(sh, dtype=dtype, device="meta")
+
+    if shape.mode in ("train", "prefill"):
+        if cfg.frontend == "frames":
+            specs = {"frames": meta((B, S, cfg.d_model), dt),
+                     "labels": meta((B, S), torch.int32),
+                     "loss_mask": meta((B, S), torch.float32)}
+            axes = {"frames": ("act_batch", "act_seq", None),
+                    "labels": ("act_batch", "act_seq"),
+                    "loss_mask": ("act_batch", "act_seq")}
+        else:
+            specs = {"tokens": meta((B, S), torch.int32), "labels": meta((B, S), torch.int32)}
+            axes = {"tokens": ("act_batch", "act_seq"), "labels": ("act_batch", "act_seq")}
+            if cfg.frontend == "patches":
+                specs["patch_embeds"] = meta((B, cfg.num_patches, cfg.d_model), dt)
+                axes["patch_embeds"] = ("act_batch", None, None)
+        if shape.mode == "prefill":
+            specs.pop("labels", None)
+            axes.pop("labels", None)
+        return specs, axes
+    # decode / long_decode: one token + positions; the cache comes separately
+    specs = {"token": meta((B,), torch.int32), "pos": meta((B,), torch.int32)}
+    axes = {"token": ("act_batch",), "pos": ("act_batch",)}
+    return specs, axes
 
 
 class _Slot(nn.Module):
@@ -102,97 +239,42 @@ class LM(nn.Module):
         self.attn_block = attn_block
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.dtype)
-        self.period = self._period(cfg)
+        self.period = period_of(cfg)
         if cfg.num_layers % self.period:
             raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not fill "
                              f"periods of {self.period}")
         self.num_periods = cfg.num_layers // self.period
-        if cfg.frontend != "none":
-            raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend is "
-                                      f"not ported yet")
-        self.slot_kinds: List[SlotKind] = []
-        for s in range(self.period):
-            kind = cfg.block_kind(s)
-            local = cfg.is_local_attn(s)
-            theta = 10000.0 if cfg.sliding_window and local else cfg.rope_theta
-            self.slot_kinds.append(SlotKind(kind, cfg.is_moe_layer(s), local, theta))
+        self.slot_kinds: List[SlotKind] = slot_kinds(cfg)
 
         specs = self.param_specs()
-        self.embed = _param(specs["embed"], dev, dtype)
-        self.unembed = _param(specs["unembed"], dev, dtype) if "unembed" in specs else None
-        self.final_norm = _param(specs["final_norm"], dev, dtype)
+        for name, spec in specs.items():      # embed, unembed, patch_proj, final_norm
+            if name != "slots":
+                self.register_parameter(name, _param(spec, dev, dtype))
         self.slots = nn.ModuleList(_Slot(ps, dev, dtype) for ps in specs["slots"])
         self.init_params(seed, specs)
 
-    @staticmethod
-    def _period(cfg: ModelConfig) -> int:
-        p = 1
-        if cfg.mamba is not None and not cfg.attention_free:
-            p = math.lcm(p, cfg.attn_every)
-        if cfg.moe is not None:
-            p = math.lcm(p, cfg.moe.every)
-        if cfg.sliding_window > 0:
-            p = math.lcm(p, cfg.swa_period)
-        return p
-
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_norm.device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.embed.dtype
+        return self.final_norm.dtype
 
     # ------------------------------------------------------------------
-    # Parameters
+    # Parameters (the module functions of these names, with this config)
     # ------------------------------------------------------------------
     def param_specs(self) -> dict:
-        c = self.cfg
-        K, D = self.num_periods, c.d_model
-        specs: dict = {"embed": ParamSpec((c.vocab_size, D))}
-        if not c.tie_embeddings:
-            specs["unembed"] = ParamSpec((c.vocab_size, D))
-        specs["final_norm"] = ParamSpec((D,), init="zeros")
-        H, KV, hd = c.num_heads, c.num_kv_heads, c.head_dim
-        slot_specs = []
-        for sk in self.slot_kinds:
-            ps = {"norm1": ParamSpec((K, D), init="zeros")}
-            if sk.kind == BLOCK_ATTN:
-                ps["wq"] = ParamSpec((K, D, H * hd))
-                ps["wk"] = ParamSpec((K, D, KV * hd))
-                ps["wv"] = ParamSpec((K, D, KV * hd))
-                ps["wo"] = ParamSpec((K, H * hd, D))
-                if c.qk_norm:
-                    ps["q_norm"] = ParamSpec((K, hd), init="zeros")
-                    ps["k_norm"] = ParamSpec((K, hd), init="zeros")
-            else:
-                m = c.mamba
-                DI = m.d_inner
-                ps["in_x"] = ParamSpec((K, D, DI))
-                ps["in_z"] = ParamSpec((K, D, DI))
-                ps["conv_w"] = ParamSpec((K, m.d_conv, DI))
-                ps["conv_b"] = ParamSpec((K, DI), init="zeros")
-                ps["x_proj"] = ParamSpec((K, DI, m.dt_rank + 2 * m.d_state))
-                ps["dt_proj"] = ParamSpec((K, m.dt_rank, DI))
-                ps["dt_bias"] = ParamSpec((K, DI), init="mamba_dt")
-                ps["A_log"] = ParamSpec((K, DI, m.d_state), init="mamba_a")
-                ps["D"] = ParamSpec((K, DI), init="ones")
-                ps["out_proj"] = ParamSpec((K, DI, D))
-            ps["norm2"] = ParamSpec((K, D), init="zeros")
-            if sk.is_moe:
-                E, F = c.moe.num_experts, c.moe.expert_ff
-                ps["router"] = ParamSpec((K, D, E))
-                ps["moe_wi"] = ParamSpec((K, E, D, F))
-                ps["moe_wg"] = ParamSpec((K, E, D, F))
-                ps["moe_wo"] = ParamSpec((K, E, F, D))
-            elif c.d_ff > 0:
-                ps["wi"] = ParamSpec((K, D, c.d_ff))
-                if c.gated_mlp:
-                    ps["wg"] = ParamSpec((K, D, c.d_ff))
-                ps["wo_mlp"] = ParamSpec((K, c.d_ff, D))
-            slot_specs.append(ps)
-        specs["slots"] = slot_specs
-        return specs
+        return param_specs(self.cfg)
+
+    def abstract_params(self) -> dict:
+        return abstract_params(self.cfg)
+
+    def param_axes(self) -> dict:
+        return param_axes(self.cfg)
+
+    def input_specs(self, shape: ShapeConfig):
+        return input_specs(self.cfg, shape)
 
     @torch.no_grad()
     def init_params(self, seed: int, specs: Optional[dict] = None) -> None:
@@ -201,9 +283,9 @@ class LM(nn.Module):
         slice, then the cast)."""
         specs = specs or self.param_specs()
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        for name in ("embed", "unembed", "final_norm"):
-            if name in specs:
-                init_param(specs[name], gen, getattr(self, name))
+        for name, spec in specs.items():
+            if name != "slots":
+                init_param(spec, gen, getattr(self, name))
         for slot, ps in zip(self.slots, specs["slots"]):
             for name, spec in ps.items():
                 stacked = getattr(slot, name)
@@ -228,16 +310,28 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     def embed_input(self, batch, params: Optional[Dict[str, torch.Tensor]] = None
                     ) -> torch.Tensor:
-        embed = self.embed if params is None else params["embed"]
-        x = embed[torch.as_tensor(batch["tokens"], device=self.device)]
-        if not self.cfg.causal:
-            x = x + sinusoidal_pos(x.shape[1], self.cfg.d_model, x.dtype, x.device)[None]
+        """[B, S, D] inputs of the first layer, as the JAX function makes them:
+        frames cast to the model's dtype; or the tokens' embeddings, the
+        first P replaced by ``patch_embeds @ patch_proj`` (P positions even
+        where S < P, as the JAX ``concatenate`` gives); sinusoidal positions
+        added, in the inputs' dtype, where the model is not causal."""
+        c = self.cfg
+        P = self._parameters if params is None else params
+        if c.frontend == "frames":
+            x = torch.as_tensor(batch["frames"], device=self.device).to(self.dtype)
+            return x + sinusoidal_pos(x.shape[1], c.d_model, x.dtype, x.device)[None]
+        x = P["embed"][torch.as_tensor(batch["tokens"], device=self.device)]
+        if c.frontend == "patches" and "patch_embeds" in batch:
+            pe = torch.as_tensor(batch["patch_embeds"], device=self.device).to(x.dtype)
+            pe = pe @ P["patch_proj"]
+            x = torch.cat([pe, x[:, pe.shape[1]:]], 1)
+        if not c.causal:
+            x = x + sinusoidal_pos(x.shape[1], c.d_model, x.dtype, x.device)[None]
         return x
 
     def _head(self, params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        if params is not None:
-            return params.get("unembed", params["embed"])
-        return self.unembed if self.unembed is not None else self.embed
+        P = self._parameters if params is None else params
+        return P["unembed"] if "unembed" in P else P["embed"]
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self._head().T
@@ -322,7 +416,8 @@ class LM(nn.Module):
         return x, caches
 
     def loss_fn(self, params: Dict[str, torch.Tensor], batch):
-        """Mean CE (+ MoE aux). batch: tokens, labels, optional loss_mask.
+        """Mean CE (+ MoE aux). batch: tokens (+ patch_embeds) or frames,
+        labels, optional loss_mask.
         Returns (loss, {"ce", and "aux" for MoE configs}).
 
         On the card a config with Mamba or MoE layers raises: the selective

@@ -375,6 +375,9 @@ def test_flash_bf16_block_shapes_match_plain(card, B, S, H, KV, hd, causal, wind
     (1, 77, 32, 32, 96, True, 0),        # phi3_vision
     (1, 256, 16, 8, 256, True, 0),       # gemma3_12b, global layers
     (1, 1100, 16, 8, 256, True, 1024),   # gemma3_12b, local layers: window 1024 at S past it
+    (1, 2048, 16, 8, 256, True, 0),      # gemma3_12b served: the 2048 prefill bucket, global
+    (1, 2048, 16, 8, 256, True, 1024),   # and local
+    (2, 640, 32, 32, 96, True, 0),       # phi3_vision: 576 patch positions and 64 tokens
 ])
 def test_flash_kernel_matches_plain_at_the_configs_head_dims(card, B, S, H, KV, hd, causal,
                                                              window, dtype):
@@ -403,6 +406,8 @@ def test_flash_kernel_matches_plain_at_the_configs_head_dims(card, B, S, H, KV, 
     (2, 600, 32, 32, 96, False, "split"),
     (2, 64, 56, 8, 128, False, "one launch"),   # G = 7 (deepseek_coder_33b): one padded group
     (1, 300, 96, 8, 128, True, "split"),        # G = 12 (mistral_large_123b): two groups
+    (2, 2048, 16, 8, 256, False, "split"),      # gemma3_12b served: global layers, max_len 2048
+    (2, 1024, 32, 32, 96, False, "split"),      # phi3_vision: a SlotCache of 1024
 ])
 def test_decode_kernel_matches_plain_on_both_routes(card, B, W, H, KV, hd, ring, route, dtype):
     from repro_torch.kernels import decode_attention as dec
@@ -588,6 +593,7 @@ TRAIN_ATTN_SHAPES = [
     (2, 64, 8, 8, 80, True, 0),
     (1, 48, 4, 2, 96, False, 0),
     (1, 33, 2, 1, 16, True, 0),
+    (2, 1024, 16, 16, 80, False, 0),     # hubert_xlarge's microbatch, bidirectional
 ]
 GRAD_TOL = {torch.float32: (1e-3, 1e-4),    # tests/test_attention.py:40
             torch.bfloat16: (2e-2, 2e-2)}   # tests/test_kernels.py:18
@@ -656,6 +662,72 @@ def test_attend_blocked_on_the_card_matches_the_cpu(card):
         grads[str(dev)] = [out, *torch.autograd.grad(out, leaves, d)]
     for g, c in zip(grads[str(card)], grads["cpu"]):
         torch.testing.assert_close(g.detach().cpu(), c.detach(), rtol=1e-3, atol=1e-4)
+
+
+def _frontend_batch(cfg, B=2, S=32, seed=9):
+    """Inputs of a frontend model, as tests/test_torch_frontends.py draws them."""
+    rng = np.random.default_rng(seed)
+    b = {"labels": rng.integers(0, cfg.vocab_size, (B, S))}
+    if cfg.frontend == "frames":
+        b["frames"] = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+        b["loss_mask"] = (rng.random((B, S)) < 0.7).astype(np.float32)
+    else:
+        b["tokens"] = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        b["patch_embeds"] = rng.standard_normal((B, cfg.num_patches, cfg.d_model)
+                                                ).astype(np.float32)
+    return b
+
+
+@pytest.mark.parametrize("arch", ["phi3_vision", "hubert_xlarge"])
+def test_frontend_lm_on_the_card_matches_the_cpu(card, arch):
+    """The LM with each frontend (phi3_vision's patches, hubert_xlarge's
+    frames), reduced, f32: hidden states and prefill logits through B1 on the
+    card against the same weights on the CPU within 2e-3; the loss and every
+    gradient (B1 with lse, B1b) within rtol 1e-3, atol 1e-4; for phi3 4
+    greedy decode steps (B2), logits within 2e-3 and tokens equal."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import LM
+
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    gpu = LM(cfg, device=card, seed=7, attn_block=16)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    batch = _frontend_batch(cfg)
+    out = {}
+    for name, lm in (("gpu", gpu), ("cpu", cpu)):
+        b = {k: torch.as_tensor(v, device=lm.device) for k, v in batch.items()}
+        with torch.no_grad():
+            x, _ = lm.forward_seq(b, want_cache=False)
+        lg, pc = lm.prefill({k: v for k, v in b.items() if k != "labels"})
+        P = {n: p.detach().clone().requires_grad_() for n, p in lm.params().items()}
+        loss, _ = lm.loss_fn(P, b)
+        grads = torch.autograd.grad(loss, list(P.values()))
+        out[name] = (x, lg, pc, loss.detach(), dict(zip(P, grads)))
+    (gx, glg, gpc, gl, gg), (cx, clg, cpc, cl, cg) = out["gpu"], out["cpu"]
+    for g, c in ((gx, cx), (glg, clg), (gl, cl)):
+        torch.testing.assert_close(g.cpu(), c, rtol=2e-3, atol=2e-3)
+    for n, c in cg.items():
+        torch.testing.assert_close(gg[n].cpu(), c, rtol=1e-3, atol=1e-4, msg=n)
+    if cfg.frontend != "patches":
+        return
+    B, S, W = 2, gx.shape[1], 64
+    caches, logits = {}, {"gpu": glg, "cpu": clg}
+    for name, lm, pc in (("gpu", gpu, gpc), ("cpu", cpu, cpc)):
+        cache = lm.init_cache(B, W)
+        for cs, ps in zip(cache["slots"], pc["slots"]):
+            for n in cs:
+                cs[n][:, :, :ps[n].shape[2]] = ps[n]
+        caches[name] = cache
+    for t in range(S, S + 4):
+        tok = logits["cpu"].argmax(-1).to(torch.int32)
+        assert torch.equal(logits["gpu"].argmax(-1).cpu(), logits["cpu"].argmax(-1))
+        for name, lm in (("gpu", gpu), ("cpu", cpu)):
+            step = {"token": tok.to(lm.device),
+                    "pos": torch.full((B,), t, dtype=torch.int32, device=lm.device)}
+            logits[name], caches[name] = lm.decode_step(caches[name], step)
+        torch.testing.assert_close(logits["gpu"].cpu(), logits["cpu"], rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize("arch", ["falcon_mamba_7b", "moonshot_v1_16b"])

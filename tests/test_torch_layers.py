@@ -88,10 +88,12 @@ def test_sinusoidal_pos():
 @pytest.mark.parametrize("shape", [(64, 32), (4, 32, 64), (16,)])
 def test_init_param_fan_in(shape):
     gen = torch.Generator().manual_seed(0)
-    w = tl.init_param(tl.ParamSpec(shape), gen)
+    spec = tl.ParamSpec(shape, (None,) * len(shape))
+    w = tl.init_param(spec, gen)
     fan_in = shape[-2] if len(shape) >= 2 else shape[0]
     assert w.dtype == torch.float32 and w.shape == shape
     assert abs(w.std().item() * np.sqrt(fan_in) - 1.0) < 0.3
     gen2 = torch.Generator().manual_seed(0)
-    torch.testing.assert_close(tl.init_param(tl.ParamSpec(shape), gen2), w)
-    assert tl.init_param(tl.ParamSpec(shape, init="zeros"), gen).abs().sum() == 0
+    torch.testing.assert_close(tl.init_param(spec, gen2), w)
+    zeros = tl.ParamSpec(shape, spec.axes, init="zeros")
+    assert tl.init_param(zeros, gen).abs().sum() == 0

@@ -139,8 +139,17 @@ def test_weights_follow_the_seed():
     assert a["final_norm"].abs().sum() == 0         # norms start at zero: scale 1 + w
 
 
-def test_unported_families_raise():
-    """Only the frontends are still unported: phi3_vision's patches."""
-    cfg = ModelConfig.from_json(reduced(jax_config("phi3_vision")).to_json())
-    with pytest.raises(NotImplementedError, match="patches"):
-        LM(cfg, device="cpu")
+@pytest.mark.parametrize("arch", ["phi3_vision", "hubert_xlarge"])
+def test_frontend_families_build_with_the_jax_parameter_set(arch):
+    """The frontends are ported: phi3_vision (patches: ``patch_proj``, an
+    untied ``unembed``) and hubert_xlarge (frames: no ``embed``) build on the
+    CPU with the JAX parameter tree's names and shapes."""
+    jcfg = reduced(jax_config(arch))
+    lm = LM(ModelConfig.from_json(jcfg.to_json()), device="cpu")
+    flat = params_from_numpy(jax.tree.map(np.asarray,
+                                          jax_build(jcfg).init_params(jax.random.PRNGKey(1))))
+    assert set(flat) == set(lm.state_dict())
+    for name, t in lm.state_dict().items():
+        assert tuple(t.shape) == tuple(flat[name].shape), name
+    assert ("patch_proj" in flat) == (arch == "phi3_vision")
+    assert ("embed" in flat) == (arch != "hubert_xlarge") and "unembed" in flat
