@@ -113,4 +113,11 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float<T>(v));
 }
 
+// --- the selective scan (B3, B3b) ---
+
+// time steps between the states B3 saves and B3b recomputes from: B3's chunk
+// of steps. The wrappers pass their own (mamba_scan.py::state_chunk, which
+// sizes the saved states) and both entry points refuse any other value.
+__host__ __device__ constexpr int scan_chunk(int N) { return N == 32 ? 16 : 32; }
+
 }  // namespace rt

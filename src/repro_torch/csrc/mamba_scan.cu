@@ -1,6 +1,10 @@
 // Mamba-1 selective scan for Hopper, with the state carried in and out:
 //   h_t = exp(dt_t A) * h_{t-1} + (dt_t x_t) B_t      h_{-1} = h0 (zeros if absent)
 //   y_t = C_t . h_t + D x_t                            and h_S written out.
+// On request (hs not null) also the state at the start of every chunk of TC
+// steps, hs [Bt, ceil(S/TC), DI, N] float32 (chunk 0's is h0): the backward
+// (mamba_scan_bwd.cu) recomputes each chunk's states from them. Writing them
+// changes nothing else: y and h_S are the same bits with or without.
 // dt, x [Bt,S,DI]; B, C [Bt,S,N] (float32 or bfloat16, any strides);
 // A [DI,N], D [DI], h0 and h_S [Bt,DI,N] float32, contiguous; y [Bt,S,DI]
 // contiguous, in the inputs' type.
@@ -67,11 +71,12 @@ __global__ void __launch_bounds__(kCh * kP)
 mamba_scan_kernel(const T* __restrict__ dt, const T* __restrict__ x, const T* __restrict__ Bm,
                   const T* __restrict__ Cm, const float* __restrict__ A,
                   const float* __restrict__ D, const float* __restrict__ h0, T* __restrict__ y,
-                  float* __restrict__ hS, int S, int DI, int64_t sdb, int64_t sdt, int64_t sdd,
+                  float* __restrict__ hS, float* __restrict__ hs, int S, int DI, int64_t sdb,
+                  int64_t sdt, int64_t sdd,
                   int64_t sxb, int64_t sxt, int64_t sxd, int64_t sBb, int64_t sBt, int64_t sBn,
                   int64_t sCb, int64_t sCt, int64_t sCn, int vec_dx, int vec_bc) {
   constexpr int NP = N / kP;                // states of a thread
-  constexpr int TC = N == 32 ? 16 : 32;     // time steps of a chunk
+  constexpr int TC = rt::scan_chunk(N);     // time steps of a chunk
   constexpr int SG = NP >= 16 ? 32 / NP : NP == 8 ? 4 : 8;   // steps of a group, TC % SG == 0
   constexpr int kThreads = kCh * kP;
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
@@ -189,6 +194,11 @@ mamba_scan_kernel(const T* __restrict__ dt, const T* __restrict__ x, const T* __
     __syncthreads();                        // ... for all; chunk k-1's buffer is free
     if (k > 0) write_y(k - 1, buf ^ 1);     // before its pieces take chunk k+1
     if (k + 1 < nchunks) stage(k + 1, buf ^ 1);
+    if (hs != nullptr && live) {            // the state entering chunk k
+      float* dst = hs + ((static_cast<int64_t>(b) * nchunks + k) * DI + d) * N + n0;
+#pragma unroll
+      for (int i = 0; i < NP; ++i) dst[i] = h[i];
+    }
     // SG steps at a time: their loads, exponentials and y shuffles are
     // independent, only h carries from step to step. Rows of the chunk past
     // S are zeros: exp(0) = 1 and dt*x = 0 leave h as it is.
@@ -249,8 +259,8 @@ bool vectorizable(const void* p, int64_t sb, int64_t st, int64_t sc, int elem, i
 
 template <typename T, int N>
 int launch(const void* dt, const void* x, const void* Bm, const void* Cm, const float* A,
-           const float* D, const float* h0, void* y, float* hS, int Bt, int S, int DI,
-           const int64_t* st, cudaStream_t stream) {
+           const float* D, const float* h0, void* y, float* hS, float* hs, int Bt, int S,
+           int DI, const int64_t* st, cudaStream_t stream) {
   const int e = static_cast<int>(sizeof(T));
   const int vec_dx = vectorizable(dt, st[0], st[1], st[2], e, DI) &&
                      vectorizable(x, st[3], st[4], st[5], e, DI);
@@ -259,20 +269,20 @@ int launch(const void* dt, const void* x, const void* Bm, const void* Cm, const 
   const dim3 grid((DI + kCh - 1) / kCh, Bt);
   mamba_scan_kernel<T, N><<<grid, kCh * kP, 0, stream>>>(
       static_cast<const T*>(dt), static_cast<const T*>(x), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), A, D, h0, static_cast<T*>(y), hS, S, DI, st[0], st[1], st[2],
+      static_cast<const T*>(Cm), A, D, h0, static_cast<T*>(y), hS, hs, S, DI, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], vec_dx, vec_bc);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_n(int N, const void* dt, const void* x, const void* Bm, const void* Cm,
-               const float* A, const float* D, const float* h0, void* y, float* hS, int Bt,
-               int S, int DI, const int64_t* st, cudaStream_t stream) {
+               const float* A, const float* D, const float* h0, void* y, float* hS, float* hs,
+               int Bt, int S, int DI, const int64_t* st, cudaStream_t stream) {
   switch (N) {
-    case 4: return launch<T, 4>(dt, x, Bm, Cm, A, D, h0, y, hS, Bt, S, DI, st, stream);
-    case 8: return launch<T, 8>(dt, x, Bm, Cm, A, D, h0, y, hS, Bt, S, DI, st, stream);
-    case 16: return launch<T, 16>(dt, x, Bm, Cm, A, D, h0, y, hS, Bt, S, DI, st, stream);
-    case 32: return launch<T, 32>(dt, x, Bm, Cm, A, D, h0, y, hS, Bt, S, DI, st, stream);
+    case 4: return launch<T, 4>(dt, x, Bm, Cm, A, D, h0, y, hS, hs, Bt, S, DI, st, stream);
+    case 8: return launch<T, 8>(dt, x, Bm, Cm, A, D, h0, y, hS, hs, Bt, S, DI, st, stream);
+    case 16: return launch<T, 16>(dt, x, Bm, Cm, A, D, h0, y, hS, hs, Bt, S, DI, st, stream);
+    case 32: return launch<T, 32>(dt, x, Bm, Cm, A, D, h0, y, hS, hs, Bt, S, DI, st, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -280,24 +290,27 @@ int dispatch_n(int N, const void* dt, const void* x, const void* Bm, const void*
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Strides are in elements, three for
-// each of dt, x, B, C (batch, time, channel or state). h0 may be null (zeros).
-// Returns the cudaError_t of the launch.
+// each of dt, x, B, C (batch, time, channel or state). h0 may be null (zeros);
+// hs may be null (no chunk states); chunk must be rt::scan_chunk(N). Returns
+// the cudaError_t of the launch.
 extern "C" int mamba_scan_fwd(const void* dt, const void* x, const void* Bm, const void* Cm,
                               const void* A, const void* D, const void* h0, void* y, void* hS,
-                              int dtype, int Bt, int S, int DI, int N,
+                              void* hs, int dtype, int Bt, int S, int DI, int N, int chunk,
                               int64_t sdb, int64_t sdt, int64_t sdd,
                               int64_t sxb, int64_t sxt, int64_t sxd,
                               int64_t sBb, int64_t sBt, int64_t sBn,
                               int64_t sCb, int64_t sCt, int64_t sCn, void* stream) {
+  if (chunk != rt::scan_chunk(N)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t st[12] = {sdb, sdt, sdd, sxb, sxt, sxd, sBb, sBt, sBn, sCb, sCt, sCn};
   const float* a = static_cast<const float*>(A);
   const float* dd = static_cast<const float*>(D);
   const float* h = static_cast<const float*>(h0);
-  float* hs = static_cast<float*>(hS);
+  float* hl = static_cast<float*>(hS);
+  float* hc = static_cast<float*>(hs);
   if (dtype == rt::kFloat32)
-    return dispatch_n<float>(N, dt, x, Bm, Cm, a, dd, h, y, hs, Bt, S, DI, st, s);
+    return dispatch_n<float>(N, dt, x, Bm, Cm, a, dd, h, y, hl, hc, Bt, S, DI, st, s);
   if (dtype == rt::kBFloat16)
-    return dispatch_n<__nv_bfloat16>(N, dt, x, Bm, Cm, a, dd, h, y, hs, Bt, S, DI, st, s);
+    return dispatch_n<__nv_bfloat16>(N, dt, x, Bm, Cm, a, dd, h, y, hl, hc, Bt, S, DI, st, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

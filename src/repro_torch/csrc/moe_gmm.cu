@@ -64,7 +64,12 @@ __device__ __forceinline__ void unpack(const uint4& u, float* out, float) {
   out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
 }
 
-template <typename T, int BT>
+// TW = false: y = x @ w[e], the sum over D (w's rows), F columns of output.
+// TW = true (B4b's dx): y = x @ w[e]^T with x = dy [T_pad, F'] and w [E, D', F']:
+// the sum runs over w's columns (the kernel's D is F') and the output has w's
+// rows as columns (the kernel's F is D'); w's tile is read in its own layout
+// and transposed in shared memory.
+template <typename T, int BT, bool TW>
 __global__ void __launch_bounds__(Tile<BT>::kThreads)
 gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const int* __restrict__ bmap,
            T* __restrict__ y, int E, int D, int F, int64_t sx, int64_t swe, int64_t swd) {
@@ -85,7 +90,7 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const int* __restri
   const int e = bmap[blk];
   if (e < 0 || e >= E) __trap();                   // the layout's contract: bmap in [0, E)
   const T* xb = x + static_cast<int64_t>(blk) * BT * sx;
-  const T* wb = w + static_cast<int64_t>(e) * swe + n0;
+  const T* wb = w + static_cast<int64_t>(e) * swe + (TW ? n0 * swd : n0);
 
   uint4 xr[XV], wr[WV];
   auto load = [&](int k0) {
@@ -101,8 +106,13 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const int* __restri
     for (int v = 0; v < WV; ++v) {
       const int idx = tid + v * kThreads;
       if (WVEC % kThreads == 0 || idx < WVEC) {
-        const int r = idx / (kBN / V), c = idx % (kBN / V) * V;
-        wr[v] = *reinterpret_cast<const uint4*>(wb + (k0 + r) * swd + c);
+        if constexpr (TW) {     // w row r (an output column), D steps k0 + c ...
+          const int r = idx % kBN, c = idx / kBN * V;
+          wr[v] = *reinterpret_cast<const uint4*>(wb + r * swd + k0 + c);
+        } else {
+          const int r = idx / (kBN / V), c = idx % (kBN / V) * V;
+          wr[v] = *reinterpret_cast<const uint4*>(wb + (k0 + r) * swd + c);
+        }
       }
     }
   };
@@ -122,10 +132,16 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const int* __restri
     for (int v = 0; v < WV; ++v) {
       const int idx = tid + v * kThreads;
       if (WVEC % kThreads == 0 || idx < WVEC) {
-        const int r = idx / (kBN / V), c = idx % (kBN / V) * V;
         unpack(wr[v], f, T());
+        if constexpr (TW) {     // ... stored transposed: ws[D step][output column]
+          const int r = idx % kBN, c = idx / kBN * V;
 #pragma unroll
-        for (int j = 0; j < V; ++j) ws[r][c + j] = f[j];
+          for (int j = 0; j < V; ++j) ws[c + j][r] = f[j];
+        } else {
+          const int r = idx / (kBN / V), c = idx % (kBN / V) * V;
+#pragma unroll
+          for (int j = 0; j < V; ++j) ws[r][c + j] = f[j];
+        }
       }
     }
   };
@@ -164,25 +180,25 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const int* __restri
   }
 }
 
-template <typename T, int BT>
+template <typename T, int BT, bool TW>
 int launch(const void* x, const void* w, const int* bmap, void* y, int nt, int E, int D, int F,
            int64_t sx, int64_t swe, int64_t swd, cudaStream_t stream) {
   const dim3 grid(nt, F / kBN);
-  gmm_kernel<T, BT><<<grid, Tile<BT>::kThreads, 0, stream>>>(
+  gmm_kernel<T, BT, TW><<<grid, Tile<BT>::kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), bmap, static_cast<T*>(y), E, D, F,
       sx, swe, swd);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool TW>
 int dispatch_bt(int bt, const void* x, const void* w, const int* bmap, void* y, int nt, int E,
                 int D, int F, int64_t sx, int64_t swe, int64_t swd, cudaStream_t s) {
   switch (bt) {
-    case 8: return launch<T, 8>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
-    case 16: return launch<T, 16>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
-    case 32: return launch<T, 32>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
-    case 64: return launch<T, 64>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
-    case 128: return launch<T, 128>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 8: return launch<T, 8, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 16: return launch<T, 16, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 32: return launch<T, 32, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 64: return launch<T, 64, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 128: return launch<T, 128, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -201,7 +217,10 @@ template <int BT> struct TcTile {
   static constexpr int kSmem = kTcStages * kStageElems * static_cast<int>(sizeof(__nv_bfloat16));
 };
 
-template <int BT>
+// TW as in gmm_kernel: dx = dy @ w[e]^T, the weights still the M side
+// (dx^T = w[e] dy^T), w's tile read row-major in its own layout, so its
+// fragments come by plain ldmatrix where the forward's come by .trans.
+template <int BT, bool TW>
 __global__ void __launch_bounds__(kTcThreads)
 gmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
               const int* __restrict__ bmap, __nv_bfloat16* __restrict__ y, int E, int D, int F,
@@ -218,7 +237,7 @@ gmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restri
   const int e = bmap[blk];
   if (e < 0 || e >= E) __trap();                   // the layout's contract: bmap in [0, E)
   const __nv_bfloat16* xb = x + static_cast<int64_t>(blk) * BT * sx;
-  const __nv_bfloat16* wb = w + static_cast<int64_t>(e) * swe + n0;
+  const __nv_bfloat16* wb = w + static_cast<int64_t>(e) * swe + (TW ? n0 * swd : n0);
   const int KT = D / kTcBK;
 
   auto load = [&](int kt) {                        // D step kt into its ring slot
@@ -229,7 +248,10 @@ gmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restri
     for (int i = 0; i < kTcBK * 8 / kTcThreads; ++i) {    // 8 chunks of 16 bytes a row
       const int c = tid + i * kTcThreads;
       const int r = c / 8, col = c % 8 * 8;
-      rt::cp_async16(ws + r * kTcLd + col, wb + static_cast<int64_t>(k0 + r) * swd + col);
+      if constexpr (TW)        // ws[output column][D step]
+        rt::cp_async16(ws + r * kTcLd + col, wb + static_cast<int64_t>(r) * swd + k0 + col);
+      else                     // ws[D step][output column]
+        rt::cp_async16(ws + r * kTcLd + col, wb + static_cast<int64_t>(k0 + r) * swd + col);
     }
 #pragma unroll
     for (int i = 0; i < (BT * 8 + kTcThreads - 1) / kTcThreads; ++i) {
@@ -264,7 +286,10 @@ gmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restri
       // A = w^T: 16 F columns x 16 D rows; matrices (f lo, d lo), (f hi, d lo),
       // (f lo, d hi), (f hi, d hi), stored d-major
       uint32_t a[4];
-      rt::ldsm_x4_trans(a, ws + (ks * 16 + r8 + (j8 / 2) * 8) * kTcLd + warp * 16 + (j8 % 2) * 8);
+      if constexpr (TW)
+        rt::ldsm_x4(a, ws + (warp * 16 + r8 + (j8 % 2) * 8) * kTcLd + ks * 16 + (j8 / 2) * 8);
+      else
+        rt::ldsm_x4_trans(a, ws + (ks * 16 + r8 + (j8 / 2) * 8) * kTcLd + warp * 16 + (j8 % 2) * 8);
       if constexpr (NT == 1) {
         uint32_t b[2];                             // B = x^T: 16 D x 8 rows, stored row-major
         rt::ldsm_x2(b, xs + r8 * kTcLd + ks * 16 + (j8 % 2) * 8);
@@ -295,11 +320,11 @@ gmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restri
   }
 }
 
-template <int BT>
+template <int BT, bool TW>
 int launch_tc(const void* x, const void* w, const int* bmap, void* y, int nt, int E, int D,
               int F, int64_t sx, int64_t swe, int64_t swd, cudaStream_t stream) {
   constexpr int smem = TcTile<BT>::kSmem;
-  auto kernel = gmm_tc_kernel<BT>;
+  auto kernel = gmm_tc_kernel<BT, TW>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(nt, F / kBN);
@@ -310,16 +335,209 @@ int launch_tc(const void* x, const void* w, const int* bmap, void* y, int nt, in
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool TW>
 int dispatch_bt_tc(int bt, const void* x, const void* w, const int* bmap, void* y, int nt, int E,
                    int D, int F, int64_t sx, int64_t swe, int64_t swd, cudaStream_t s) {
   switch (bt) {
-    case 8: return launch_tc<8>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
-    case 16: return launch_tc<16>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
-    case 32: return launch_tc<32>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
-    case 64: return launch_tc<64>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
-    case 128: return launch_tc<128>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 8: return launch_tc<8, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 16: return launch_tc<16, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 32: return launch_tc<32, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 64: return launch_tc<64, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    case 128: return launch_tc<128, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---- B4b's dW: dw[e] = sum over the row blocks i of expert e of x[blk i]^T dy[blk i] ----
+//
+// One block of threads per (expert, 64-row D tile, 64-column F tile), the
+// tile's only writer: it lists its expert's row blocks in shared memory (warp
+// 0 scans block_to_expert with ballots, in order: no host round trip, any
+// order of the map), then runs the product over those blocks' rows packed one
+// after the other, in steps of rows that need not align with blocks (packed
+// row p is row p % BT of the list's block p / BT; rows past the list are
+// zeros). The sums run in float32 in that fixed order; an expert with no rows
+// gets zeros. Rows of padding blocks are zero in the layout, so they add
+// nothing.
+
+// warp 0 lists the blocks of expert e in ascending order; returns their count
+__device__ __forceinline__ int list_blocks(const int* __restrict__ bmap, int nt, int e,
+                                           int* list, int* count) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int n = 0;
+    for (int i0 = 0; i0 < nt; i0 += 32) {
+      const int i = i0 + lane;
+      const bool mine = i < nt && bmap[i] == e;
+      const unsigned m = __ballot_sync(0xffffffffu, mine);
+      if (mine) list[n + __popc(m & ((1u << lane) - 1u))] = i;
+      n += __popc(m);
+    }
+    if (lane == 0) *count = n;
+  }
+  __syncthreads();
+  return *count;
+}
+
+// float32: 256 threads, each 4 D rows x 4 F columns, RK rows a step staged
+// in shared memory
+constexpr int kDwRK = 32;
+
+__global__ void __launch_bounds__(256)
+gmm_dw_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+              const int* __restrict__ bmap, float* __restrict__ dw, int lbt, int nt, int D,
+              int F, int64_t sx, int64_t sdy) {
+  extern __shared__ int dw_list[];
+  __shared__ __align__(16) float xs[kDwRK][kBN];
+  __shared__ __align__(16) float ys[kDwRK][kBN];
+  __shared__ int count;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int f0 = blockIdx.x * kBN, d0 = blockIdx.y * kBN, e = blockIdx.z;
+  const int rows = list_blocks(bmap, nt, e, dw_list, &count) << lbt;
+  const int bt = 1 << lbt;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < rows; k0 += kDwRK) {
+#pragma unroll
+    for (int v = 0; v < kDwRK * kBN / 4 / 256; ++v) {
+      const int idx = tid + v * 256;
+      const int r = idx / (kBN / 4), c = idx % (kBN / 4) * 4;
+      const int p = k0 + r;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), g = a;
+      if (p < rows) {
+        const int64_t row = static_cast<int64_t>(dw_list[p >> lbt]) * bt + (p & (bt - 1));
+        a = *reinterpret_cast<const float4*>(x + row * sx + d0 + c);
+        g = *reinterpret_cast<const float4*>(dy + row * sdy + f0 + c);
+      }
+      *reinterpret_cast<float4*>(&xs[r][c]) = a;
+      *reinterpret_cast<float4*>(&ys[r][c]) = g;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kDwRK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
+      const float4 g = *reinterpret_cast<const float4*>(&ys[kk][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = dw + (static_cast<int64_t>(e) * D + d0 + ty * 4) * F + f0 + tx * 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(out + static_cast<int64_t>(i) * F) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+// bfloat16: tensor cores, four warps of 16 D rows x 64 F columns each; A =
+// x^T (x's tile stored [rows][D], fragments by ldmatrix.trans), B = dy (stored
+// [rows][F], fragments by ldmatrix.trans); 64-row steps through a 4-stage
+// cp.async ring as in the forward
+constexpr int kDwStageElems = 2 * kTcBK * kTcLd;                  // x [64][72], dy [64][72]
+constexpr int kDwSmem = kTcStages * kDwStageElems * static_cast<int>(sizeof(__nv_bfloat16));
+
+__global__ void __launch_bounds__(kTcThreads)
+gmm_dw_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+                 const int* __restrict__ bmap, __nv_bfloat16* __restrict__ dw, int lbt, int nt,
+                 int D, int F, int64_t sx, int64_t sdy) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(dw_smem);
+  int* list = reinterpret_cast<int*>(dw_smem + kDwSmem);
+  __shared__ int count;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int f0 = blockIdx.x * kBN, d0 = blockIdx.y * kBN, e = blockIdx.z;
+  const int rows = list_blocks(bmap, nt, e, list, &count) << lbt;
+  const int bt = 1 << lbt;
+  const int KT = (rows + kTcBK - 1) / kTcBK;
+
+  auto load = [&](int kt) {                        // rows kt*64 ... into their ring slot
+    __nv_bfloat16* xs = smem + (kt % kTcStages) * kDwStageElems;
+    __nv_bfloat16* ys = xs + kTcBK * kTcLd;
+#pragma unroll
+    for (int i = 0; i < kTcBK * 8 / kTcThreads; ++i) {    // 8 chunks of 16 bytes a row
+      const int c = tid + i * kTcThreads;
+      const int r = c / 8, col = c % 8 * 8;
+      const int p = kt * kTcBK + r;
+      const bool in = p < rows;
+      const int64_t row = in ? static_cast<int64_t>(list[p >> lbt]) * bt + (p & (bt - 1)) : 0;
+      rt::cp_async16(xs + r * kTcLd + col, x + row * sx + d0 + col, in);
+      rt::cp_async16(ys + r * kTcLd + col, dy + row * sdy + f0 + col, in);
+    }
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < KT) load(s);
+    rt::cp_async_commit();
+  }
+  const int j8 = lane / 8, r8 = lane % 8;
+  for (int kt = 0; kt < KT; ++kt) {
+    rt::cp_async_wait<kTcStages - 2>();              // step kt has landed
+    __syncthreads();                               // ... for every thread; kt-1's slot is free
+    if (kt + kTcStages - 1 < KT) load(kt + kTcStages - 1);
+    rt::cp_async_commit();
+    const __nv_bfloat16* xs = smem + (kt % kTcStages) * kDwStageElems;
+    const __nv_bfloat16* ys = xs + kTcBK * kTcLd;
+#pragma unroll
+    for (int ks = 0; ks < kTcBK / 16; ++ks) {
+      // A = x^T: 16 D x 16 rows, stored row-major [rows][D]
+      uint32_t a[4];
+      rt::ldsm_x4_trans(a, xs + (ks * 16 + r8 + (j8 / 2) * 8) * kTcLd + warp * 16 + (j8 % 2) * 8);
+#pragma unroll
+      for (int nt8 = 0; nt8 < 8; nt8 += 2) {       // B = dy: 16 rows x 8 F, two n8 tiles
+        uint32_t b[4];
+        rt::ldsm_x4_trans(b, ys + (ks * 16 + (j8 % 2) * 8 + r8) * kTcLd + (nt8 + j8 / 2) * 8);
+        rt::mma_bf16_16816(acc[nt8], a, b);
+        rt::mma_bf16_16816(acc[nt8 + 1], a, b + 2);
+      }
+    }
+  }
+  rt::cp_async_wait<0>();
+
+  // acc[j] holds dw rows (D) g, g+8 x columns (F) 2t, 2t+1 of n8 tile j
+  const int g = lane / 4, t = lane % 4;
+  __nv_bfloat16* out = dw + (static_cast<int64_t>(e) * D + d0 + warp * 16 + g) * F + f0 + 2 * t;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<uint32_t*>(out + j * 8) = rt::pack_bf16(acc[j][0], acc[j][1]);
+    *reinterpret_cast<uint32_t*>(out + 8 * static_cast<int64_t>(F) + j * 8) =
+        rt::pack_bf16(acc[j][2], acc[j][3]);
+  }
+}
+
+int launch_dw(int dtype, const void* x, const void* dy, const int* bmap, void* dw, int bt,
+              int nt, int E, int D, int F, int64_t sx, int64_t sdy, cudaStream_t stream) {
+  int lbt = 0;
+  while ((1 << lbt) < bt) ++lbt;
+  const dim3 grid(F / kBN, D / kBN, E);
+  const int list_bytes = nt * static_cast<int>(sizeof(int));
+  if (dtype == rt::kFloat32) {
+    cudaError_t err = cudaFuncSetAttribute(gmm_dw_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           list_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gmm_dw_kernel<<<grid, 256, list_bytes, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), bmap,
+        static_cast<float*>(dw), lbt, nt, D, F, sx, sdy);
+  } else {
+    const int smem = kDwSmem + list_bytes;
+    cudaError_t err = cudaFuncSetAttribute(gmm_dw_tc_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gmm_dw_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy), bmap,
+        static_cast<__nv_bfloat16*>(dw), lbt, nt, D, F, sx, sdy);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -333,8 +551,36 @@ extern "C" int grouped_matmul_fwd(const void* x, const void* w, const void* bmap
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* b = static_cast<const int*>(bmap);
   if (dtype == rt::kFloat32)
-    return dispatch_bt<float>(block_t, x, w, b, y, nt, E, D, F, sx, swe, swd, s);
+    return dispatch_bt<float, false>(block_t, x, w, b, y, nt, E, D, F, sx, swe, swd, s);
   if (dtype == rt::kBFloat16)
-    return dispatch_bt_tc(block_t, x, w, b, y, nt, E, D, F, sx, swe, swd, s);
+    return dispatch_bt_tc<false>(block_t, x, w, b, y, nt, E, D, F, sx, swe, swd, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B4b's dx: dx[i*BT:(i+1)*BT] = dy[i*BT:(i+1)*BT] @ w[block_to_expert[i]]^T,
+// dy [T_pad, F] (rows through sdy), w [E, D, F] read in place, dx [T_pad, D]
+// contiguous. The forward's kernels with w's tile taken transposed (TW).
+extern "C" int grouped_matmul_dx(const void* dy, const void* w, const void* bmap, void* dx,
+                                 int dtype, int block_t, int nt, int E, int D, int F,
+                                 int64_t sdy, int64_t swe, int64_t swd, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* b = static_cast<const int*>(bmap);
+  // the kernels' D is the summed extent (F here) and their F the output's (D)
+  if (dtype == rt::kFloat32)
+    return dispatch_bt<float, true>(block_t, dy, w, b, dx, nt, E, F, D, sdy, swe, swd, s);
+  if (dtype == rt::kBFloat16)
+    return dispatch_bt_tc<true>(block_t, dy, w, b, dx, nt, E, F, D, sdy, swe, swd, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B4b's dW: dw [E, D, F] contiguous, in x's type, from x [T_pad, D] and dy
+// [T_pad, F] (rows through sx and sdy). Every expert's tile is written, zeros
+// where it has no rows.
+extern "C" int grouped_matmul_dw(const void* x, const void* dy, const void* bmap, void* dw,
+                                 int dtype, int block_t, int nt, int E, int D, int F,
+                                 int64_t sx, int64_t sdy, void* stream) {
+  if (dtype != rt::kFloat32 && dtype != rt::kBFloat16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dw(dtype, x, dy, static_cast<const int*>(bmap), dw, block_t, nt, E, D, F, sx,
+                   sdy, static_cast<cudaStream_t>(stream));
 }

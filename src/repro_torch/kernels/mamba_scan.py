@@ -9,7 +9,11 @@ Replaces the TPU kernel ``repro/kernels/mamba_scan.py::_mamba_kernel`` (its
 with dt, x ``[Bt, S, DI]``, B, C ``[Bt, S, N]``, A ``[DI, N]``, D ``[DI]``.
 Beyond the TPU kernel, which starts from zeros and drops the final state,
 it takes ``h0`` ``[Bt, DI, N]`` (zeros when ``None``) and returns ``h_S``:
-prefill hands that state to decode.
+prefill hands that state to decode. On request (``states=True``, the
+training forward) it also writes the float32 state at the start of every
+chunk of :func:`state_chunk` steps, ``[Bt, ceil(S / T_c), DI, N]`` (chunk
+0's is h0): the backward, B3b (``mamba_scan_bwd.py``), recomputes each
+chunk's states from them. y and h_S are the same bits with or without.
 
 The kernel is ``csrc/mamba_scan.cu``: one block per 64 channels loops over
 t, one thread per (channel, N/4 states) with the states in registers, each
@@ -32,7 +36,7 @@ float32.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -43,11 +47,20 @@ STATE_DIMS = (4, 8, 16, 32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def state_chunk(N: int) -> int:
+    """Time steps between the saved states: the kernel's chunk of steps (32,
+    16 at N 32), so that B3b holds a chunk's states of 64 channels in 128 KB
+    of shared memory. The wrappers pass it to B3 and B3b, which refuse it
+    unless it is their own (``scan_chunk`` in ``csrc/common.cuh``)."""
+    return 16 if N == 32 else 32
+
+
 def mamba_scan_plain(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-                     A: torch.Tensor, D: torch.Tensor,
-                     h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     A: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                     chunk: Optional[int] = None):
     """The sequential recurrence, float32 state. Returns (y [Bt,S,DI] in x's
-    type, h_S [Bt,DI,N] float32)."""
+    type, h_S [Bt,DI,N] float32), and with ``chunk`` the states at the start
+    of every ``chunk`` steps, ``[Bt, ceil(S / chunk), DI, N]``, third."""
     Bt, S, DI = x.shape
     A32 = A.float()
     dt32 = dt.float()
@@ -57,11 +70,15 @@ def mamba_scan_plain(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor, C: torc
         h = torch.zeros((Bt, DI, A.shape[1]), dtype=torch.float32, device=x.device)
     else:
         h = h0.float()
-    ys = []
+    ys, states = [], []
     for t in range(S):
+        if chunk and t % chunk == 0:
+            states.append(h)
         h = torch.exp(dt32[:, t, :, None] * A32) * h + bx[:, t, :, None] * B32[:, t, None, :]
         ys.append((h * C32[:, t, None, :]).sum(-1))
     y = torch.stack(ys, 1) + x.float() * D.float()
+    if chunk:
+        return y.to(x.dtype), h, torch.stack(states, 1)
     return y.to(x.dtype), h
 
 
@@ -72,7 +89,7 @@ def _kernel():
     global _FN
     if _FN is None:
         fn = build.load("mamba_scan").mamba_scan_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                        + [ctypes.c_int64] * 12 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
@@ -110,27 +127,34 @@ def _check(dt, x, B, C, A, D, h0):
 
 
 def mamba_scan(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-               A: torch.Tensor, D: torch.Tensor,
-               h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+               A: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None,
+               states: bool = False):
     """Launch kernel B3 on CUDA tensors. Returns (y [Bt,S,DI] in x's type,
-    h_S [Bt,DI,N] float32)."""
+    h_S [Bt,DI,N] float32), and with ``states`` the float32 states at the
+    start of every :func:`state_chunk` steps, ``[Bt, ceil(S / T_c), DI, N]``,
+    third."""
     _check(dt, x, B, C, A, D, h0)
     check_capability(x.device)
     Bt, S, DI = x.shape
     N = B.shape[2]
     y = torch.empty((Bt, S, DI), dtype=x.dtype, device=x.device)
     h_last = torch.empty((Bt, DI, N), dtype=torch.float32, device=x.device)
+    hs = None
+    if states:
+        hs = torch.empty((Bt, -(-S // state_chunk(N)), DI, N), dtype=torch.float32,
+                         device=x.device)
     with torch.cuda.device(x.device):
         err = _kernel()(
             dt.data_ptr(), x.data_ptr(), B.data_ptr(), C.data_ptr(), A.data_ptr(),
             D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_last.data_ptr(), _DTYPES[x.dtype], Bt, S, DI, N,
+            h_last.data_ptr(), None if hs is None else hs.data_ptr(), _DTYPES[x.dtype],
+            Bt, S, DI, N, state_chunk(N),
             *dt.stride(), *x.stride(), *B.stride(), *C.stride(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"mamba_scan kernel launch failed with CUDA error {err}")
     mamba_scan.launches += 1
-    return y, h_last
+    return (y, h_last, hs) if states else (y, h_last)
 
 
 mamba_scan.launches = 0

@@ -4,7 +4,9 @@ Sequence mode runs the selective scan through ``kernels.ops.mamba_scan``:
 kernel B3 on the card, its plain sequential version on the CPU. The JAX
 package's ``_ssm_chunk_scan`` (the XLA-friendly chunked associative form of
 the same recurrence) has no counterpart here; B3 takes its place and, like
-it, hands the final state to the decode cache.
+it, hands the final state to the decode cache. Under autograd the scan is
+differentiable through the same op: B3 saves its chunk states and the
+backward is kernel B3b (the plain reverse recurrence on the CPU).
 
 Decode mode is the O(1) recurrence in plain PyTorch, as in the JAX package,
 which computes it outside any Pallas kernel. The "cache" is (conv window

@@ -27,6 +27,18 @@ expert order (the order of JAX's scatter-add over expert-sorted slots), by
 gathers and adds rather than ``index_add_``, whose atomics on the card
 reorder bf16 sums from run to run.
 
+Training differentiates the three products through ``kernels.ops`` (B4b on
+the card). The dispatch gather and the combine have backwards of their own,
+each the other's forward turned round: :class:`_Dispatch`'s sums each
+token's kept rows' gradients by gathers in ascending expert order, as the
+combine sums their outputs, where PyTorch's backward of the gather would
+scatter-add them; :class:`_Combine`'s hands each kept row its token's
+gradient by one gather over ``row_token``, where PyTorch's backward of the
+combine's gathers would scatter every dropped assignment's gradient into
+the one discarded row (at the random weights of a training start most
+assignments are dropped, and that serial accumulation took a quarter of
+moonshot_v1_16b's train step on an H100 SXM at 700 W).
+
 The JAX package's capacity chunking (``GROUPS``) is not ported: it bounds
 the ``[B, E, C, D]`` buffers of the einsum form, which the sorted layout
 never builds, and it is 1 at every serving shape (``B*E*C*D*2`` is 0.79 MB
@@ -122,6 +134,52 @@ def build_layout(eidx: torch.Tensor, gate: torch.Tensor, C: int, block_t: int,
     return Layout(bmap, row_token, row_gate, token_rows.reshape(B, S, k), block_t)
 
 
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``cat([x, 0])[idx]``: an index of ``len(x)`` reads the zero row."""
+    return torch.cat([x, x.new_zeros(1, x.shape[1])])[idx]
+
+
+def _sum_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``sum_j cat([x, 0])[rows[:, j]]``, added in the order of ``rows``'
+    columns, from zero in x's type."""
+    xp = torch.cat([x, x.new_zeros(1, x.shape[1])])
+    y = xp[rows[:, 0]]
+    for j in range(1, rows.shape[1]):
+        y = y + xp[rows[:, j]]
+    return y
+
+
+class _Dispatch(torch.autograd.Function):
+    """The dispatch gather ``cat([x2, 0])[row_token]`` (row ``B*S`` is the
+    zero row of padding). Its backward sums each token's rows, ``rows``
+    [B*S, k] in ascending expert order (``T_pad`` for a dropped one), by
+    gathers and adds in that order: the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, x2, row_token, rows):
+        ctx.save_for_backward(rows)
+        return _gather_rows(x2, row_token)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_rows(g, ctx.saved_tensors[0]), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """The combine, :class:`_Dispatch` turned round: each token sums its rows
+    in ascending expert order; each kept row belongs to one token, so its
+    gradient is that token's, one gather over ``row_token``."""
+
+    @staticmethod
+    def forward(ctx, contrib, rows, row_token):
+        ctx.save_for_backward(row_token)
+        return _sum_rows(contrib, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_rows(g, ctx.saved_tensors[0]), None, None
+
+
 def moe_forward(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     """x [B, S, D] (or [B, D] for decode) -> the same shape. ``p`` holds
     ``router`` [D, E], ``wg``/``wi`` [E, D, F] and ``wo`` [E, F, D]."""
@@ -133,14 +191,12 @@ def moe_forward(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     C = capacity(S, e.top_k, e.num_experts, e.capacity_factor)
     eidx, gate = route(x, p["router"], cfg)
     lay = build_layout(eidx, gate, C, block_rows(B, C), e.num_experts)
-    xin = torch.cat([x.reshape(B * S, D), x.new_zeros(1, D)])[lay.row_token]
+    # each token's rows in ascending expert order (T_pad where dropped)
+    rows = torch.gather(lay.token_rows, -1, torch.argsort(eidx, dim=-1))
+    xin = _Dispatch.apply(x.reshape(B * S, D), lay.row_token, rows.reshape(B * S, -1))
     out = ops.moe_expert_ffn(xin, p["wg"], p["wi"], p["wo"], lay.block_to_expert, lay.block_t)
     contrib = (out * lay.row_gate[:, None].to(out.dtype)).to(x.dtype)
-    contrib = torch.cat([contrib, contrib.new_zeros(1, D)])   # row T_pad: the dropped
-    rows = torch.gather(lay.token_rows, -1, torch.argsort(eidx, dim=-1))
-    y = contrib[rows[..., 0]]
-    for j in range(1, e.top_k):
-        y = y + contrib[rows[..., j]]
+    y = _Combine.apply(contrib, rows.reshape(B * S, -1), lay.row_token).reshape(B, S, D)
     return y[:, 0] if squeeze else y
 
 

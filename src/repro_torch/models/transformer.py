@@ -418,15 +418,8 @@ class LM(nn.Module):
     def loss_fn(self, params: Dict[str, torch.Tensor], batch):
         """Mean CE (+ MoE aux). batch: tokens (+ patch_embeds) or frames,
         labels, optional loss_mask.
-        Returns (loss, {"ce", and "aux" for MoE configs}).
-
-        On the card a config with Mamba or MoE layers raises: the selective
-        scan (B3) and the grouped matmul (B4) have no backward kernel yet."""
+        Returns (loss, {"ce", and "aux" for MoE configs})."""
         c = self.cfg
-        if self.device.type == "cuda" and (c.mamba is not None or c.moe is not None):
-            raise NotImplementedError(
-                f"{c.name}: training on the card needs backward kernels for B3 (Mamba) and "
-                f"B4 (MoE), queued in ROADMAP.md; train it with device='cpu'")
         x, _ = self.forward_seq(batch, want_cache=False, params=params)
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         mask = batch.get("loss_mask")

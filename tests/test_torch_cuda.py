@@ -730,14 +730,72 @@ def test_frontend_lm_on_the_card_matches_the_cpu(card, arch):
         torch.testing.assert_close(logits["gpu"].cpu(), logits["cpu"], rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "moonshot_v1_16b"])
-def test_loss_fn_on_the_card_raises_for_mamba_and_moe(card, arch):
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "moonshot_v1_16b", "jamba15_large"])
+def test_loss_fn_and_every_gradient_on_the_card_match_the_cpu(card, arch):
+    """Reduced f32 Mamba, MoE and hybrid configs: the loss and every gradient
+    through B3/B3b and B4/B4b on the card against the plain versions on the
+    CPU, within rtol 1e-3, atol 1e-4 (tests/test_attention.py:40)."""
+    import copy
+    from dataclasses import replace
+
     from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.kernels import mamba_scan_bwd as msb
+    from repro_torch.kernels import moe_gmm
     from repro_torch.models import LM
-    lm = LM(reduced(get_config(arch)), device=card)
-    toks = torch.zeros((1, 8), dtype=torch.int64, device=card)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.loss_fn(lm.params(), {"tokens": toks, "labels": toks})
+    cfg = replace(reduced(get_config(arch), d_model=64), dtype="float32")
+    gpu = LM(cfg, device=card, seed=5, attn_block=16)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    batch = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                   global_batch=2)).batch(0)
+    out = {}
+    n0 = (msb.mamba_scan_bwd.launches, moe_gmm.grouped_matmul_dx.launches,
+          moe_gmm.grouped_matmul_dw.launches)
+    for name, lm in (("gpu", gpu), ("cpu", cpu)):
+        P = {n: p.detach().clone().requires_grad_() for n, p in lm.params().items()}
+        loss, _ = lm.loss_fn(P, batch)
+        grads = torch.autograd.grad(loss, list(P.values()), allow_unused=True,
+                                    materialize_grads=True)
+        out[name] = (loss.detach(), dict(zip(P, grads)))
+    launched = (msb.mamba_scan_bwd.launches - n0[0], moe_gmm.grouped_matmul_dx.launches - n0[1],
+                moe_gmm.grouped_matmul_dw.launches - n0[2])
+    assert (launched[0] > 0) == (cfg.mamba is not None)
+    assert (launched[1] > 0 and launched[2] > 0) == (cfg.moe is not None)
+    torch.testing.assert_close(out["gpu"][0].cpu(), out["cpu"][0], rtol=1e-3, atol=1e-4)
+    for n, g in out["cpu"][1].items():
+        torch.testing.assert_close(out["gpu"][1][n].cpu(), g, rtol=1e-3, atol=1e-4, msg=n)
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "moonshot_v1_16b"])
+def test_train_steps_on_the_card_match_the_cpu_for_mamba_and_moe(card, arch):
+    """Where loss_fn raised on the card before B3b and B4b: two f32 AdamW
+    steps of the reduced config, card against CPU, losses and parameters
+    within 2e-3, and the loss finite."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import LM
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import make_train_step
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    gpu = LM(cfg, device=card, seed=3, attn_block=16)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4))
+    out = {}
+    for name, lm in (("gpu", gpu), ("cpu", cpu)):
+        opt = AdamW(lr=1e-3)
+        params = {n: p.detach() for n, p in lm.params().items()}
+        state, step, losses = opt.init(params), make_train_step(lm, opt, accum=2), []
+        for i in range(2):
+            params, state, m = step(params, state, stream.batch(i))
+            losses.append(float(m["loss"]))
+        out[name] = (losses, params)
+    assert np.isfinite(out["gpu"][0]).all()
+    np.testing.assert_allclose(out["gpu"][0], out["cpu"][0], rtol=2e-3, atol=2e-3)
+    for n, p in out["cpu"][1].items():
+        torch.testing.assert_close(out["gpu"][1][n].cpu(), p, rtol=2e-3, atol=2e-3, msg=n)
 
 
 def test_train_steps_on_the_card_match_the_cpu(card):
@@ -859,3 +917,192 @@ def test_flash_bwd_bf16_refuses_unaligned_tensors(card):
     with pytest.raises(ValueError, match="16-byte aligned"):
         fb.flash_attention_bwd(off, k, v, q, lse, dout)
     assert fb.flash_attention_bwd.launches == n
+
+
+# ---------------------------------------------------------------------------
+# B3 with its chunk states, B3b (the scan's backward), B4b (dx and dW)
+# ---------------------------------------------------------------------------
+
+
+def _scan_args(card, Bt, S, DI, N, dtype=torch.float32, h0=True, big_dt=False):
+    gen = torch.Generator(device=card).manual_seed(S * 7 + DI + N)
+    dt = torch.nn.functional.softplus(torch.randn(Bt, S, DI, generator=gen, device=card)) * 0.1
+    if big_dt:          # steps where exp(dt A) underflows to 0
+        dt[:, ::5] *= 4000.0
+    x = _randn(gen, (Bt, S, DI), dtype, card)
+    proj = _randn(gen, (Bt, S, 8 + 2 * N), dtype, card)
+    A = -torch.exp(0.2 * torch.randn(DI, N, generator=gen, device=card))
+    D = torch.randn(DI, generator=gen, device=card)
+    hz = torch.randn(Bt, DI, N, generator=gen, device=card) if h0 else None
+    return (dt.to(dtype), x, proj[..., 8:8 + N], proj[..., 8 + N:], A, D, hz), gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,S,DI,N", [(1, 32, 8192, 16), (2, 77, 100, 4), (3, 40, 48, 32),
+                                      (2, 65, 64, 8)])
+def test_mamba_scan_states_leave_y_and_h_bit_equal(card, Bt, S, DI, N, dtype):
+    from repro_torch.kernels import mamba_scan as ms
+    args, _ = _scan_args(card, Bt, S, DI, N, dtype)
+    y, h = ms.mamba_scan(*args)
+    n = ms.mamba_scan.launches
+    y2, h2, states = ms.mamba_scan(*args, states=True)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == n + 1
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    Tc = ms.state_chunk(N)
+    assert tuple(states.shape) == (Bt, -(-S // Tc), DI, N)
+    _, _, want = ms.mamba_scan_plain(*args, chunk=Tc)
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(states, want, rtol=tol, atol=tol)
+    assert torch.equal(states[:, 0], args[6])
+
+
+@pytest.mark.parametrize("big_dt", [False, True], ids=["moderate_dt", "dt_A_underflows"])
+@pytest.mark.parametrize("Bt,S,DI,N,h0", [
+    (1, 64, 8192, 16, False),          # falcon_mamba_7b's widths
+    (2, 77, 100, 4, True),             # ragged: S past a chunk, DI not a block multiple
+    (3, 40, 48, 32, True),
+    (2, 96, 128, 8, True),
+])
+def test_mamba_scan_bwd_kernel_matches_plain(card, Bt, S, DI, N, h0, big_dt):
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import mamba_scan_bwd as msb
+    args, gen = _scan_args(card, Bt, S, DI, N, h0=h0, big_dt=big_dt)
+    _, _, states = ms.mamba_scan(*args, states=True)
+    ins = [t.contiguous() for t in args[:6]] + [states]
+    dy = torch.randn(Bt, S, DI, generator=gen, device=card)
+    dh_S = torch.randn(Bt, DI, N, generator=gen, device=card) if h0 else None
+    n = msb.mamba_scan_bwd.launches
+    got = msb.mamba_scan_bwd(*ins, dy, dh_S)
+    again = msb.mamba_scan_bwd(*ins, dy, dh_S)
+    torch.cuda.synchronize()
+    assert msb.mamba_scan_bwd.launches == n + 2
+    want = msb.mamba_scan_bwd_plain(*ins, dy, dh_S, chunk=ms.state_chunk(N))
+    tol = SCAN_TOL[torch.float32]
+    for name, g, w, a in zip(got._fields, got, want, again):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol, msg=name)
+        assert torch.equal(g, a), name
+
+
+def test_mamba_scan_bwd_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import mamba_scan_bwd as msb
+    args, gen = _scan_args(card, 2, 40, 64, 16)
+    _, _, states = ms.mamba_scan(*args, states=True)
+    ins = [t.contiguous() for t in args[:6]] + [states]
+    dy = torch.randn(2, 40, 64, generator=gen, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        msb.mamba_scan_bwd(*[t.to(torch.bfloat16) if i < 4 else t for i, t in enumerate(ins)],
+                           dy)
+    with pytest.raises(ValueError, match="contiguous"):
+        msb.mamba_scan_bwd(*args[:6], states, dy)          # B and C are strided views
+    with pytest.raises(ValueError, match="states"):
+        msb.mamba_scan_bwd(*ins[:6], states[:, :1], dy)
+    with pytest.raises(ValueError, match="dh_S"):
+        msb.mamba_scan_bwd(*ins, dy, torch.zeros(2, 64, 8, device=card))
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        msb.mamba_scan_bwd(*[t.cpu() for t in ins], dy.cpu())
+
+
+@pytest.mark.parametrize("N", [16, 32])
+def test_scan_kernels_refuse_a_chunk_other_than_their_own(card, monkeypatch, N):
+    """B3 and B3b hold the wrappers' state_chunk, which sizes the saved
+    states, against their own chunk of steps, so the two cannot drift apart
+    unseen."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import mamba_scan_bwd as msb
+    args, gen = _scan_args(card, 2, 40, 64, N)
+    ins = [t.contiguous() for t in args[:6]]
+    dy = torch.randn(2, 40, 64, generator=gen, device=card)
+    wrong = ms.state_chunk(N) // 2
+    states = torch.zeros(2, -(-40 // wrong), 64, N, device=card)
+    monkeypatch.setattr(ms, "state_chunk", lambda n: wrong)
+    monkeypatch.setattr(msb, "state_chunk", lambda n: wrong)
+    n0, n1 = ms.mamba_scan.launches, msb.mamba_scan_bwd.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        ms.mamba_scan(*args, states=True)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        msb.mamba_scan_bwd(*ins, states, dy)
+    assert (ms.mamba_scan.launches, msb.mamba_scan_bwd.launches) == (n0, n1)
+
+
+def _gmm_bwd_case(card, gen, lay, B, S, D, F, dtype):
+    x = torch.cat([_randn(gen, (B * S, D), dtype, card),
+                   torch.zeros(1, D, dtype=dtype, device=card)])[lay.row_token]
+    w = (torch.randn(2, 64, D, F, generator=gen, device=card) / D ** 0.5).to(dtype)[1]
+    dy = _randn(gen, (x.shape[0], F), dtype, card)
+    return x, w, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D,F", [
+    (2, 64, 2048, 1408),               # moonshot's experts at 128 tokens: gate/up, then down
+    (2, 64, 1408, 2048),
+    (1, 16, 128, 64),                  # 8-row blocks
+    (4, 32, 64, 192),
+])
+def test_grouped_matmul_bwd_kernels_match_plain(card, B, S, D, F, dtype):
+    from repro_torch.kernels import moe_gmm
+    gen = torch.Generator(device=card).manual_seed(S + D + F)
+    lay = _routed_layout(card, gen, B, S)
+    x, w, dy = _gmm_bwd_case(card, gen, lay, B, S, D, F, dtype)
+    bmap, bt = lay.block_to_expert, lay.block_t
+    n = (moe_gmm.grouped_matmul_dx.launches, moe_gmm.grouped_matmul_dw.launches)
+    dx = moe_gmm.grouped_matmul_dx(dy, w, bmap, bt)
+    dw = moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, w.shape[0])
+    dx2 = moe_gmm.grouped_matmul_dx(dy, w, bmap, bt)
+    dw2 = moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, w.shape[0])
+    torch.cuda.synchronize()
+    assert (moe_gmm.grouped_matmul_dx.launches, moe_gmm.grouped_matmul_dw.launches) == (
+        n[0] + 2, n[1] + 2)
+    want_dx, want_dw = moe_gmm.grouped_matmul_bwd_plain(x, w, dy, bmap, bt)
+    tol = TOL[dtype]
+    assert dx.dtype == dw.dtype == dtype and dw.shape == w.shape
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol, atol=tol)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    unused = set(range(64)) - set(bmap.tolist())
+    assert all(float(dw[e].abs().max()) == 0 for e in unused)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,D,F,E,bt", [
+    (512, 128, 256, 4, 64), (256, 64, 128, 8, 32), (256, 128, 128, 4, 128), (96, 64, 192, 3, 16),
+    (64, 64, 64, 2, 8)])
+def test_grouped_matmul_bwd_kernels_match_plain_on_sweeps(card, T, D, F, E, bt, dtype):
+    """Random block maps, in no order: dW lists each expert's blocks itself."""
+    from repro_torch.kernels import moe_gmm
+    gen = torch.Generator(device=card).manual_seed(T + bt + 1)
+    x = _randn(gen, (T, 2 * D), dtype, card)[:, D:]          # rows through a stride
+    w = _randn(gen, (E, D, F), dtype, card)
+    dy = _randn(gen, (T, F), dtype, card)
+    bmap = torch.randint(0, E, (T // bt,), generator=gen, device=card, dtype=torch.int32)
+    dx = moe_gmm.grouped_matmul_dx(dy, w, bmap, bt)
+    dw = moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, E)
+    want_dx, want_dw = moe_gmm.grouped_matmul_bwd_plain(x, w, dy, bmap, bt)
+    tol = TOL[dtype]
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol, atol=tol)
+
+
+def test_grouped_matmul_bwd_wrappers_reject_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels import moe_gmm
+    x = torch.zeros(32, 64, device=card)
+    w = torch.zeros(2, 64, 128, device=card)
+    dy = torch.zeros(32, 128, device=card)
+    bmap = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="shapes"):
+        moe_gmm.grouped_matmul_dx(x, w, bmap, 8)            # dy's columns run over F
+    with pytest.raises(TypeError, match="int32"):
+        moe_gmm.grouped_matmul_dw(x, dy, bmap.long(), 8, 2)
+    with pytest.raises(ValueError, match="block_t"):
+        moe_gmm.grouped_matmul_dw(x, dy, bmap, 12, 2)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        moe_gmm.grouped_matmul_dw(x, dy[:, :96], bmap, 8, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gmm.grouped_matmul_dx(dy, w.transpose(1, 2).contiguous().transpose(1, 2), bmap, 8)
+    with pytest.raises(TypeError):
+        moe_gmm.grouped_matmul_dx(dy.half(), w.half(), bmap, 8)
+    with pytest.raises(ValueError, match="rows"):
+        moe_gmm.grouped_matmul_dw(x, dy[:16], bmap, 8, 2)
