@@ -10,7 +10,8 @@ imports nothing of JAX. Phases, each of which fails the run:
    capability;
 2. build: the kernels of the serving and training paths (B1-B4, the flash
    backward B1b, the scan's backward B3b and the grouped matmul's backward
-   B4b, in B4's source) from ``src/repro_torch/csrc``, one ``nvcc`` a
+   B4b: its bf16 route at block_t 64-128 on wgmma and TMA in its own source,
+   its other routes in B4's) from ``src/repro_torch/csrc``, one ``nvcc`` a
    source, all at once; registers and spills of every kernel;
 3. kernels against their plain PyTorch versions on the card, at the serving
    shapes, at the JAX package's sweep shapes and at the head dims of its
@@ -118,8 +119,14 @@ the states against the plain forward's) and B3b against its plain version
 within 2e-3, two calls bit-equal; and B4b's dx and dW at
 ``moonshot_v1_16b``'s microbatch (4 x 1024 tokens routed to 64 experts,
 T_pad 32 768, block_t 128; gate/up and down) within 2e-4 in f32 and 2e-2 in
-bf16, two calls bit-equal; with times beside their bounds and, for B4b,
-``torch._grouped_mm``'s backward (timed here only).
+bf16, two calls bit-equal, and, with dy zero on the padding rows (as
+``used_blocks`` promises), dx and dW with the layout's ``used_blocks``
+bit-equal to the calls without it; with times beside their bounds (over
+the rows read) and, for B4b, ``torch._grouped_mm``'s backward over the
+same blocks (timed here only), three ways in bf16: with ``used_blocks`` (as training calls
+them), without it (every block), and with it on a layout where 8 experts
+take every token and capacity drops ~85% of the assignments (as phase 13's
+router does at its weights).
 
 Phase 3 also holds B1's logsumexp (within 2e-4 in f32, 2e-2 in bf16) and
 the flash backward B1b (dq, dk, dv within rtol 1e-3, atol 1e-4 in f32, the
@@ -312,7 +319,7 @@ MAMBA_LINE = "falcon_mamba_7b S32"
 GMM_LINE = "moonshot decode c2 wg/wi"    # 2 of B4's 3 calls per layer of a decode step
 BWD_LINE = "train_100m microbatch"
 SCAN_BWD_LINE = "falcon_mamba_7b microbatch"
-GMM_BWD_LINE = "moonshot microbatch wg/wi"      # 2 of B4b's 3 products per layer
+GMM_BWD_LINE = "moonshot microbatch wg/wi"      # 2 of B4b's 3 products a layer, used_blocks
 BWD_TIMED = (BWD_LINE, "hubert microbatch")     # B1b (and B1 with lse) timed at these
 
 
@@ -727,13 +734,19 @@ def _time_flash(F, fa, q, k, v, causal, window, dname, err):
 
 
 def _timings(kern, wrapper, plain, lib, shape, err, lib_err, b_ms, b_by,
-             library="scaled_dot_product_attention", plain_iters=100):
+             library="scaled_dot_product_attention", plain_iters=100, plain_row=None):
     """Times of a kernel, its plain version and the library call ``lib``
-    (None where there is none: ``library`` then says why)."""
+    (None where there is none: ``library`` then says why). ``plain_row``:
+    a row of the same function on the same inputs whose plain times this
+    row takes (``plain`` is then not timed)."""
+    if plain_row is None:
+        plain_times = {"plain_ms": time_ms(plain, iters=plain_iters,
+                                           warmup=min(10, plain_iters)),
+                       "plain_device_ms": device_ms(plain, iters=max(1, plain_iters // 2))}
+    else:
+        plain_times = {n: plain_row[n] for n in ("plain_ms", "plain_device_ms")}
     return {"shape": shape, "max_abs_err": err, "library": library,
-            "ms": time_ms(kern), "device_ms": device_ms(kern, wrapper=wrapper),
-            "plain_ms": time_ms(plain, iters=plain_iters, warmup=min(10, plain_iters)),
-            "plain_device_ms": device_ms(plain, iters=max(1, plain_iters // 2)),
+            "ms": time_ms(kern), "device_ms": device_ms(kern, wrapper=wrapper), **plain_times,
             "library_ms": time_ms(lib) if lib else None,
             "library_device_ms": device_ms(lib) if lib else None,
             "library_err": lib_err, "bound_ms": b_ms, "bound_by": b_by}
@@ -972,7 +985,11 @@ def _check_gmm_bwd():
     """B4b's dx and dW against their plain version at moonshot_v1_16b's
     training microbatch, on a layout routed from random router probabilities,
     gate/up and down, float32 (TF32 off) within 2e-4 and bfloat16 within
-    2e-2; two calls bit-equal; bf16 timed."""
+    2e-2; two calls bit-equal; with dy zero on the padding rows (as the
+    model's backward gives it, and as used_blocks promises), dx and dW with
+    the layout's used_blocks bit-equal to the calls without it; bf16 timed
+    on those inputs with and without used_blocks, and with it on a layout
+    that drops ~85% of the assignments."""
     import torch
 
     from repro_torch.kernels import moe_gmm
@@ -988,11 +1005,14 @@ def _check_gmm_bwd():
                                    -1).topk(k)
         lay = tmoe.build_layout(eidx, gate / gate.sum(-1, keepdim=True), C,
                                 tmoe.block_rows(B, C), E)
-        bmap, bt = lay.block_to_expert, lay.block_t
+        bmap, bt, used = lay.block_to_expert, lay.block_t, lay.used_blocks
         T = lay.row_token.numel()
-        kept = int((lay.row_token < B * S).sum())
+        pad = lay.row_token == B * S
+        kept = int((~pad).sum())
+        n_used = int(used.item())
         what = (f"B{B} S{S} C{C} T_pad{T} bt{bt} D{D} F{F} E{E}: {kept} of {B * S * k} "
-                f"assignments kept, {int(torch.unique(bmap).numel())} experts")
+                f"assignments kept, {int(torch.unique(bmap).numel())} experts, {n_used} of "
+                f"{bmap.numel()} blocks used")
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
             x = torch.cat([_inputs(g, (B * S, D), dtype),
@@ -1003,71 +1023,146 @@ def _check_gmm_bwd():
             dw = moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, E)
             dx2 = moe_gmm.grouped_matmul_dx(dy, w, bmap, bt)
             dw2 = moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, E)
+            # used_blocks promises x and dy zero past the used rows (x is, as
+            # dispatched): with that, the calls with it equal those without
+            dyz = dy.masked_fill(pad[:, None], 0)
+            dxz = moe_gmm.grouped_matmul_dx(dyz, w, bmap, bt)
+            dwz = moe_gmm.grouped_matmul_dw(x, dyz, bmap, bt, E)
+            dxu = moe_gmm.grouped_matmul_dx(dyz, w, bmap, bt, used)
+            dwu = moe_gmm.grouped_matmul_dw(x, dyz, bmap, bt, E, used)
             want_dx, want_dw = moe_gmm.grouped_matmul_bwd_plain(x, w, dy, bmap, bt)
             torch.cuda.synchronize()
             tol = TOL[dname]
+            route = moe_gmm.bwd_route(dtype, bt)
             errs = {n: (a.float() - b.float()).abs().max().item()
                     for n, a, b in (("dx", dx, want_dx), ("dw", dw, want_dw))}
             ok = (torch.allclose(dx.float(), want_dx.float(), rtol=tol, atol=tol)
                   and torch.allclose(dw.float(), want_dw.float(), rtol=tol, atol=tol))
             same = torch.equal(dx, dx2) and torch.equal(dw, dw2)
-            print(f"[kernels] grouped_matmul_bwd {label} {what} {dname} "
-                  f"[{moe_gmm.ROUTES[dtype]}]: max_abs_err dx {errs['dx']:.3e} dw "
-                  f"{errs['dw']:.3e} (tol {tol:g}); two calls bit-equal: {same} "
-                  f"{'ok' if ok and same else 'FAIL'}")
+            with_used = torch.equal(dxu, dxz) and torch.equal(dwu, dwz)
+            print(f"[kernels] grouped_matmul_bwd {label} {what} {dname} [{route}]: "
+                  f"max_abs_err dx {errs['dx']:.3e} dw {errs['dw']:.3e} (tol {tol:g}); two "
+                  f"calls bit-equal: {same}; dy zero on the padding rows, with used_blocks "
+                  f"dx and dW bit-equal to without: {with_used} "
+                  f"{'ok' if ok and same and with_used else 'FAIL'}")
             check(ok, f"grouped_matmul_bwd {label} {dname} disagrees with its plain version")
             check(same, f"grouped_matmul_bwd {label} {dname} is not deterministic")
+            check(with_used, f"grouped_matmul_bwd {label} {dname} changes with used_blocks")
             if dname == "bfloat16":
-                rows.update(_time_gmm_bwd(moe_gmm, label, x, w, dy, bmap, bt, kept, errs))
-            del x, w, dy, dx, dw, dx2, dw2, want_dx, want_dw
+                for part in ("dx", "dw"):
+                    row = rows[(f"grouped_matmul_{part}", label, dname)] = _time_gmm_bwd(
+                        moe_gmm, part, x, w, dyz, bmap, bt, used, kept, errs[part])
+                    rows[(f"grouped_matmul_{part}", label + ", all blocks", dname)] = (
+                        _time_gmm_bwd(moe_gmm, part, x, w, dyz, bmap, bt, None, kept,
+                                      errs[part], plain_row=row))
+            del x, w, dy, dyz, dx, dw, dx2, dw2, dxz, dwz, dxu, dwu, want_dx, want_dw
             torch.cuda.empty_cache()
+        rows.update(_check_gmm_bwd_dropped(moe_gmm, tmoe, label, B, S, D, F, E, k, C))
     return rows
 
 
-def _time_gmm_bwd(moe_gmm, label, x, w, dy, bmap, bt, kept, errs):
-    """dx and dW timed apart, each beside its plain version, its bound and
+def _check_gmm_bwd_dropped(moe_gmm, tmoe, label, B, S, D, F, E, k, C):
+    """bf16 B4b on a layout where 8 experts take nearly every token's top 6
+    and capacity drops ~85% of the assignments (phase 13's router at its
+    weights), with used_blocks: within 2e-2 of the plain version, and timed.
+    dy is zero on the padding rows, as the model's backward gives it."""
+    import torch
+    g = _own_gen("grouped_matmul_bwd dropped", B, S, D, F)
+    logits = torch.randn(B, S, E, generator=g, device="cuda")
+    logits[..., :8] += 8.0
+    gate, eidx = torch.softmax(logits, -1).topk(k)
+    lay = tmoe.build_layout(eidx, gate / gate.sum(-1, keepdim=True), C, tmoe.block_rows(B, C), E)
+    bmap, bt, used = lay.block_to_expert, lay.block_t, lay.used_blocks
+    T = lay.row_token.numel()
+    pad = lay.row_token == B * S
+    kept = int((~pad).sum())
+    x = torch.cat([_inputs(g, (B * S, D), torch.bfloat16),
+                   torch.zeros(1, D, dtype=torch.bfloat16, device="cuda")])[lay.row_token]
+    w = _gmm_weights(g, E, D, F, torch.bfloat16)
+    dy = (_inputs(g, (T, F), torch.float32) / 16).to(torch.bfloat16)
+    dy[pad] = 0
+    dx = moe_gmm.grouped_matmul_dx(dy, w, bmap, bt, used)
+    dw = moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, E, used)
+    want_dx, want_dw = moe_gmm.grouped_matmul_bwd_plain(x, w, dy, bmap, bt, used_blocks=used)
+    torch.cuda.synchronize()
+    tol = TOL["bfloat16"]
+    errs = {n: (a.float() - b.float()).abs().max().item()
+            for n, a, b in (("dx", dx, want_dx), ("dw", dw, want_dw))}
+    ok = (torch.allclose(dx.float(), want_dx.float(), rtol=tol, atol=tol)
+          and torch.allclose(dw.float(), want_dw.float(), rtol=tol, atol=tol))
+    print(f"[kernels] grouped_matmul_bwd {label}, 85% dropped: T_pad{T} bt{bt}: {kept} of "
+          f"{B * S * k} assignments kept ({1 - kept / (B * S * k):.2%} dropped), "
+          f"{int(used.item())} of {bmap.numel()} blocks used; bfloat16 "
+          f"[{moe_gmm.bwd_route(torch.bfloat16, bt)}]: max_abs_err dx {errs['dx']:.3e} dw "
+          f"{errs['dw']:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"grouped_matmul_bwd {label}, 85% dropped, disagrees with its plain version")
+    return {(f"grouped_matmul_{part}", label + ", 85% dropped", "bfloat16"): _time_gmm_bwd(
+        moe_gmm, part, x, w, dy, bmap, bt, used, kept, errs[part]) for part in ("dx", "dw")}
+
+
+def _time_gmm_bwd(moe_gmm, part, x, w, dy, bmap, bt, used, kept, err, plain_row=None):
+    """B4b's ``part`` (dx or dw), with ``used`` blocks (None: all), timed
+    beside its plain version (or ``plain_row``'s times of it), its bound and
     ``torch._grouped_mm``'s backward for the same input through autograd
-    (timed here only), where the installed torch has it."""
+    (timed here only), where the installed torch has it, over the same
+    blocks."""
     import torch
     T, D = x.shape
     E, _, F = w.shape
     elt = x.element_size()
-    experts = int(torch.unique(bmap).numel())
-    # 2*D*F operations for each row that holds an assignment; dx reads dy and
-    # each distinct expert's weights and writes dx, dW reads x and dy and
-    # writes every expert's dw
+    nb = bmap.numel() if used is None else int(used.item())
+    rows = nb * bt                  # the rows the function reads: none past used
+    experts = int(torch.unique(bmap[:nb]).numel())
+    # 2*D*F operations for each row that holds an assignment; dx reads dy's
+    # used rows and each distinct expert's weights and writes all of dx, dW
+    # reads x's and dy's used rows and writes every expert's dw
     flops = 2.0 * kept * D * F
-    bounds = {"dx": bound_ms((T * F + experts * D * F + T * D) * elt + bmap.numel() * 4,
-                             flops, "bfloat16"),
-              "dw": bound_ms((T * D + T * F + E * D * F) * elt + bmap.numel() * 4, flops,
-                             "bfloat16")}
-    libs = {"dx": None, "dw": None}
+    if part == "dx":
+        b_ms, b_by = bound_ms((rows * F + experts * D * F + T * D) * elt + nb * 4,
+                              flops, "bfloat16")
+        kern = lambda: moe_gmm.grouped_matmul_dx(dy, w, bmap, bt, used)
+        plain = lambda: moe_gmm.grouped_matmul_bwd_plain(x, w, dy, bmap, bt, used_blocks=used,
+                                                         need_dw=False)
+        wrapper = moe_gmm.grouped_matmul_dx
+    else:
+        b_ms, b_by = bound_ms((rows * D + rows * F + E * D * F) * elt + nb * 4, flops,
+                              "bfloat16")
+        kern = lambda: moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, E, used)
+        plain = lambda: moe_gmm.grouped_matmul_bwd_plain(x, w, dy, bmap, bt, used_blocks=used,
+                                                         need_dx=False)
+        wrapper = moe_gmm.grouped_matmul_dw
+    lib, lib_err = None, None
     lib_name = "none: the installed torch has no torch._grouped_mm"
     if hasattr(torch, "_grouped_mm"):
-        offs = (torch.cumsum(torch.bincount(bmap.long(), minlength=E), 0) * bt).to(torch.int32)
-        xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
-        out_x = torch._grouped_mm(xr, w, offs=offs)        # dx only
-        out_w = torch._grouped_mm(x, wr, offs=offs)        # dW only
-        libs = {"dx": lambda: torch.autograd.grad(out_x, xr, dy, retain_graph=True)[0],
-                "dw": lambda: torch.autograd.grad(out_w, wr, dy, retain_graph=True)[0]}
+        # groups over the same blocks as the kernel: with used, the last ends
+        # at its rows, and the library leaves the padding past them out too
+        offs = (torch.cumsum(torch.bincount(bmap[:nb].long(), minlength=E), 0)
+                * bt).to(torch.int32)
+        if part == "dx":       # dx only
+            xr = x.detach().requires_grad_()
+            out = torch._grouped_mm(xr, w, offs=offs)
+            lib = lambda: torch.autograd.grad(out, xr, dy, retain_graph=True)[0]
+        else:                  # dW only
+            wr = w.detach().requires_grad_()
+            out = torch._grouped_mm(x, wr, offs=offs)
+            lib = lambda: torch.autograd.grad(out, wr, dy, retain_graph=True)[0]
         lib_name = "torch._grouped_mm backward through autograd"
-    rows = {}
-    for part, wrapper in (("dx", moe_gmm.grouped_matmul_dx), ("dw", moe_gmm.grouped_matmul_dw)):
+        # held to the plain version on the rows it computes (its dx past
+        # them is not written)
+        got, want = lib(), moe_gmm.grouped_matmul_bwd_plain(x, w, dy, bmap, bt,
+                                                             used_blocks=used)
         if part == "dx":
-            kern = lambda: moe_gmm.grouped_matmul_dx(dy, w, bmap, bt)
-            plain = lambda: moe_gmm.grouped_matmul_bwd_plain(x, w, dy, bmap, bt, need_dw=False)
+            got, want = got[:rows], want[0][:rows]
         else:
-            kern = lambda: moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, E)
-            plain = lambda: moe_gmm.grouped_matmul_bwd_plain(x, w, dy, bmap, bt, need_dx=False)
-        lib_err = None
-        if libs[part] is not None:
-            want = plain()[0 if part == "dx" else 1]
-            lib_err = (libs[part]().float() - want.float()).abs().max().item()
-        rows[(f"grouped_matmul_{part}", label, "bfloat16")] = _timings(
-            kern, wrapper, plain, libs[part],
-            f"T_pad{T} bt{bt} D{D} F{F} E{E}, {kept} rows kept, {experts} experts", errs[part],
-            lib_err, *bounds[part], library=lib_name, plain_iters=6)
-    return rows
+            want = want[1]
+        lib_err = (got.float() - want.float()).abs().max().item()
+    blocks = "all" if used is None else f"{nb} used"
+    plain_note = "" if plain_row is None else ", plain timed with used_blocks"
+    return _timings(kern, wrapper, plain, lib,
+                    f"T_pad{T} bt{bt} D{D} F{F} E{E}, {kept} rows kept, {experts} experts, "
+                    f"{blocks} of {bmap.numel()} blocks [{moe_gmm.bwd_route(x.dtype, bt)}]"
+                    f"{plain_note}", err, lib_err, b_ms, b_by, library=lib_name,
+                    plain_iters=6, plain_row=plain_row)
 
 
 def phase_engine():
@@ -2065,7 +2160,7 @@ def phase_train_moonshot():
     lm, params, batches, launches = _train_cut(
         "moonshot_v1_16b", 2, "train-moe", want,
         kernels=(("B4 (forward)", ("gmm_tc_kernel<128, false>",)),
-                 ("B4b dx", ("gmm_tc_kernel<128, true>",)), ("B4b dW", ("gmm_dw_tc_kernel",)),
+                 ("B4b dx", ("gmm_dx_wgmma_kernel",)), ("B4b dW", ("gmm_dw_wgmma_kernel",)),
                  ("B1", ("flash_fwd",)), ("B1b", bwd)))
     E, k, vocab = lm.cfg.moe.num_experts, lm.cfg.moe.top_k, lm.cfg.vocab_size
     route0, build0 = tmoe.route, tmoe.build_layout
@@ -2535,9 +2630,9 @@ def main() -> int:
             ("mamba_scan_bwd", SCAN_BWD_LINE, "float32", "src/repro/models/mamba.py:24",
              "src/repro_torch/csrc/mamba_scan_bwd.cu"),
             ("grouped_matmul_dx", GMM_BWD_LINE, "bfloat16", "src/repro/models/moe.py:88",
-             "src/repro_torch/csrc/moe_gmm.cu"),
+             "src/repro_torch/csrc/moe_gmm_bwd.cu"),
             ("grouped_matmul_dw", GMM_BWD_LINE, "bfloat16", "src/repro/models/moe.py:88",
-             "src/repro_torch/csrc/moe_gmm.cu")):
+             "src/repro_torch/csrc/moe_gmm_bwd.cu")):
         r = rows[(name, label, dname)]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

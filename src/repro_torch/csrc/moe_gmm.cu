@@ -45,6 +45,11 @@
 //
 // Nothing is masked: the wrapper checks T_pad % BT == 0, D % 64 == 0,
 // F % 64 == 0 and 16-byte alignment of x's rows and w's rows.
+//
+// B4b, the backward (grouped_matmul_dx, grouped_matmul_dw below), has three
+// routes (kernels/moe_gmm.py::bwd_route): float32 and bf16 at block_t 8-32
+// here; bf16 at block_t 64 and 128, every training microbatch, on wgmma fed
+// by TMA in csrc/moe_gmm_bwd.cu, whose note gives B4b's bounds.
 #include "common.cuh"
 
 namespace {
@@ -342,10 +347,13 @@ int dispatch_bt_tc(int bt, const void* x, const void* w, const int* bmap, void* 
     case 8: return launch_tc<8, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
     case 16: return launch_tc<16, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
     case 32: return launch_tc<32, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
-    case 64: return launch_tc<64, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
-    case 128: return launch_tc<128, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
+  if constexpr (!TW) {   // B4b's dx at block_t 64 and 128 is csrc/moe_gmm_bwd.cu's
+    if (bt == 64) return launch_tc<64, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+    if (bt == 128) return launch_tc<128, TW>(x, w, bmap, y, nt, E, D, F, sx, swe, swd, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---- B4b's dW: dw[e] = sum over the row blocks i of expert e of x[blk i]^T dy[blk i] ----
@@ -529,6 +537,7 @@ int launch_dw(int dtype, const void* x, const void* dy, const int* bmap, void* d
         static_cast<const float*>(x), static_cast<const float*>(dy), bmap,
         static_cast<float*>(dw), lbt, nt, D, F, sx, sdy);
   } else {
+    if (bt > 32) return static_cast<int>(cudaErrorInvalidValue);   // csrc/moe_gmm_bwd.cu's
     const int smem = kDwSmem + list_bytes;
     cudaError_t err = cudaFuncSetAttribute(gmm_dw_tc_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -559,7 +568,8 @@ extern "C" int grouped_matmul_fwd(const void* x, const void* w, const void* bmap
 
 // B4b's dx: dx[i*BT:(i+1)*BT] = dy[i*BT:(i+1)*BT] @ w[block_to_expert[i]]^T,
 // dy [T_pad, F] (rows through sdy), w [E, D, F] read in place, dx [T_pad, D]
-// contiguous. The forward's kernels with w's tile taken transposed (TW).
+// contiguous. The forward's kernels with w's tile taken transposed (TW); bf16
+// only at block_t 8-32 (64 and 128: csrc/moe_gmm_bwd.cu).
 extern "C" int grouped_matmul_dx(const void* dy, const void* w, const void* bmap, void* dx,
                                  int dtype, int block_t, int nt, int E, int D, int F,
                                  int64_t sdy, int64_t swe, int64_t swd, void* stream) {
@@ -575,7 +585,8 @@ extern "C" int grouped_matmul_dx(const void* dy, const void* w, const void* bmap
 
 // B4b's dW: dw [E, D, F] contiguous, in x's type, from x [T_pad, D] and dy
 // [T_pad, F] (rows through sx and sdy). Every expert's tile is written, zeros
-// where it has no rows.
+// where it has no rows. bf16 only at block_t 8-32 (64 and 128:
+// csrc/moe_gmm_bwd.cu).
 extern "C" int grouped_matmul_dw(const void* x, const void* dy, const void* bmap, void* dw,
                                  int dtype, int block_t, int nt, int E, int D, int F,
                                  int64_t sx, int64_t sdy, void* stream) {

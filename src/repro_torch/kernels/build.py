@@ -24,7 +24,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "mamba_scan",
-           "mamba_scan_bwd", "moe_gmm")
+           "mamba_scan_bwd", "moe_gmm", "moe_gmm_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600

@@ -117,9 +117,12 @@ class _MambaScan(torch.autograd.Function):
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, block_to_expert: torch.Tensor,
-                   block_t: int) -> torch.Tensor:
+                   block_t: int, used_blocks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B4's product; ``used_blocks`` (the layout's, see
+    ``models/moe.py::Layout``) reaches only the backward, B4b, which skips
+    the all-padding row blocks at and past it."""
     if _records(x, w):
-        return _GroupedMatmul.apply(x, w, block_to_expert, block_t)
+        return _GroupedMatmul.apply(x, w, block_to_expert, block_t, used_blocks)
     return _grouped_matmul(x, w, block_to_expert, block_t)
 
 
@@ -129,14 +132,17 @@ def _grouped_matmul(x, w, block_to_expert, block_t):
     return _gmm.grouped_matmul(x, w, block_to_expert, block_t)
 
 
-def grouped_matmul_bwd(x, w, dy, block_to_expert, block_t, *, need_dx=True, need_dw=True):
+def grouped_matmul_bwd(x, w, dy, block_to_expert, block_t, *, used_blocks=None, need_dx=True,
+                       need_dw=True):
     """(dx, dw) of the grouped matmul, None for what is not needed: kernel
     B4b's two entry points on the card, its plain version on the CPU."""
     if x.device.type == "cpu":
         return _gmm.grouped_matmul_bwd_plain(x, w, dy, block_to_expert, block_t,
-                                             need_dx=need_dx, need_dw=need_dw)
-    dx = _gmm.grouped_matmul_dx(dy, w, block_to_expert, block_t) if need_dx else None
-    dw = (_gmm.grouped_matmul_dw(x, dy, block_to_expert, block_t, w.shape[0])
+                                             used_blocks=used_blocks, need_dx=need_dx,
+                                             need_dw=need_dw)
+    dx = (_gmm.grouped_matmul_dx(dy, w, block_to_expert, block_t, used_blocks)
+          if need_dx else None)
+    dw = (_gmm.grouped_matmul_dw(x, dy, block_to_expert, block_t, w.shape[0], used_blocks)
           if need_dw else None)
     return dx, dw
 
@@ -145,27 +151,30 @@ class _GroupedMatmul(torch.autograd.Function):
     """B4 forward, B4b backward (the plain versions on the CPU)."""
 
     @staticmethod
-    def forward(ctx, x, w, block_to_expert, block_t):
+    def forward(ctx, x, w, block_to_expert, block_t, used_blocks):
         ctx.save_for_backward(x, w, block_to_expert)
-        ctx.block_t = block_t
+        ctx.block_t, ctx.used_blocks = block_t, used_blocks
         return _grouped_matmul(x, w, block_to_expert, block_t)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, block_to_expert = ctx.saved_tensors
         dx, dw = grouped_matmul_bwd(x, w, dy.contiguous(), block_to_expert, ctx.block_t,
+                                    used_blocks=ctx.used_blocks,
                                     need_dx=ctx.needs_input_grad[0],
                                     need_dw=ctx.needs_input_grad[1])
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def moe_expert_ffn(xin: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
-                   block_to_expert: torch.Tensor, block_t: int) -> torch.Tensor:
+                   block_to_expert: torch.Tensor, block_t: int,
+                   used_blocks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SwiGLU expert FFN over expert-sorted rows, three grouped matmuls:
     ``silu(x @ wg[e]) * (x @ wi[e])`` then ``@ wo[e]``, the gating in plain
     PyTorch. xin [T_pad, D]; wg/wi [E, D, F]; wo [E, F, D]. Under autograd
     each product is differentiable on its own; xin's gradient is the sum of
-    the gate and up products' dx."""
-    g = grouped_matmul(xin, wg, block_to_expert, block_t)
-    u = grouped_matmul(xin, wi, block_to_expert, block_t)
-    return grouped_matmul(F.silu(g) * u, wo, block_to_expert, block_t)
+    the gate and up products' dx. ``used_blocks``: the layout's row blocks
+    that hold assignments, for the backward."""
+    g = grouped_matmul(xin, wg, block_to_expert, block_t, used_blocks)
+    u = grouped_matmul(xin, wi, block_to_expert, block_t, used_blocks)
+    return grouped_matmul(F.silu(g) * u, wo, block_to_expert, block_t, used_blocks)

@@ -61,6 +61,7 @@ class Layout(NamedTuple):
     row_gate: torch.Tensor          # [T_pad] float32: the row's gate; 0 on padding
     token_rows: torch.Tensor        # [B, S, k] int64: each assignment's row; T_pad if dropped
     block_t: int
+    used_blocks: torch.Tensor       # [1] int32: blocks holding an assignment; the rest padding
 
 
 def capacity(S: int, k: int, E: int, capacity_factor: float) -> int:
@@ -96,7 +97,9 @@ def build_layout(eidx: torch.Tensor, gate: torch.Tensor, C: int, block_t: int,
     rows are grouped by expert (within an expert, in flat ``(b, s, j)``
     order), each group padded with zero rows to a multiple of ``block_t``.
     Blocks past the last used one take that block's expert and hold zero
-    rows, so every id lies in ``[0, E)``."""
+    rows, so every id lies in ``[0, E)``; ``used_blocks`` counts the used
+    ones (``sum_e ceil(kept_e / block_t)``), on the device, so that B4b can
+    skip the rest without a host round trip."""
     B, S, k = eidx.shape
     E, Sk = num_experts, S * k
     N = B * Sk
@@ -131,7 +134,8 @@ def build_layout(eidx: torch.Tensor, gate: torch.Tensor, C: int, block_t: int,
     last = torch.where(counts > 0, ar_e[:E], 0).max()
     bmap = torch.searchsorted(blk_end, torch.arange(nt, device=dev), right=True)
     bmap = torch.where(bmap < E, bmap, last).to(torch.int32)
-    return Layout(bmap, row_token, row_gate, token_rows.reshape(B, S, k), block_t)
+    return Layout(bmap, row_token, row_gate, token_rows.reshape(B, S, k), block_t,
+                  blk_end[-1:].to(torch.int32))
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -194,7 +198,8 @@ def moe_forward(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     # each token's rows in ascending expert order (T_pad where dropped)
     rows = torch.gather(lay.token_rows, -1, torch.argsort(eidx, dim=-1))
     xin = _Dispatch.apply(x.reshape(B * S, D), lay.row_token, rows.reshape(B * S, -1))
-    out = ops.moe_expert_ffn(xin, p["wg"], p["wi"], p["wo"], lay.block_to_expert, lay.block_t)
+    out = ops.moe_expert_ffn(xin, p["wg"], p["wi"], p["wo"], lay.block_to_expert, lay.block_t,
+                             lay.used_blocks)
     contrib = (out * lay.row_gate[:, None].to(out.dtype)).to(x.dtype)
     y = _Combine.apply(contrib, rows.reshape(B * S, -1), lay.row_token).reshape(B, S, D)
     return y[:, 0] if squeeze else y

@@ -182,13 +182,19 @@ def test_engine_on_the_card_serves_falcon_mamba_through_b3(card, monkeypatch):
     assert all(len(t) == 5 for i in insts for t in i.generated.values())
 
 
-def _routed_layout(card, gen, B, S, E=64, k=6, cf=1.25):
-    """moonshot_v1_16b's dispatch (64 experts, top-6) from a random routing."""
+def _routed_layout(card, gen, B, S, E=64, k=6, cf=1.25, block_t=None, hot=0):
+    """moonshot_v1_16b's dispatch (64 experts, top-6) from a random routing,
+    at the layout's own block_t unless one is given. ``hot`` > 0: that many
+    experts take nearly every token's top k, so that capacity drops most
+    assignments (as moonshot's router did at its training start)."""
     from repro_torch.models import moe as tmoe
-    gate, eidx = torch.softmax(torch.randn(B, S, E, generator=gen, device=card), -1).topk(k)
+    logits = torch.randn(B, S, E, generator=gen, device=card)
+    if hot:
+        logits[..., :hot] += 8.0
+    gate, eidx = torch.softmax(logits, -1).topk(k)
     C = tmoe.capacity(S, k, E, cf)
     return tmoe.build_layout(eidx, gate / gate.sum(-1, keepdim=True), C,
-                             tmoe.block_rows(B, C), E)
+                             block_t or tmoe.block_rows(B, C), E)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1035,6 +1041,23 @@ def _gmm_bwd_case(card, gen, lay, B, S, D, F, dtype):
     return x, w, dy
 
 
+def _check_used_blocks(moe_gmm, x, w, dy, lay):
+    """used_blocks promises that x and dy are zero past the used rows (x is,
+    as dispatched; dy is, as the model's backward gives it): on such inputs
+    dx and dW with the layout's used_blocks are bit-equal to the calls
+    without it, on every route."""
+    bmap, bt, used = lay.block_to_expert, lay.block_t, lay.used_blocks
+    B, S = lay.token_rows.shape[:2]
+    dyz = dy.masked_fill((lay.row_token == B * S)[:, None], 0)
+    E = w.shape[0]
+    dxu = moe_gmm.grouped_matmul_dx(dyz, w, bmap, bt, used)
+    dwu = moe_gmm.grouped_matmul_dw(x, dyz, bmap, bt, E, used)
+    torch.cuda.synchronize()
+    assert torch.equal(dxu, moe_gmm.grouped_matmul_dx(dyz, w, bmap, bt))
+    assert torch.equal(dwu, moe_gmm.grouped_matmul_dw(x, dyz, bmap, bt, E))
+
+
+@pytest.mark.parametrize("bt", [None, 64, 128], ids=["layout_bt", "bt64", "bt128"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,D,F", [
     (2, 64, 2048, 1408),               # moonshot's experts at 128 tokens: gate/up, then down
@@ -1042,10 +1065,12 @@ def _gmm_bwd_case(card, gen, lay, B, S, D, F, dtype):
     (1, 16, 128, 64),                  # 8-row blocks
     (4, 32, 64, 192),
 ])
-def test_grouped_matmul_bwd_kernels_match_plain(card, B, S, D, F, dtype):
+def test_grouped_matmul_bwd_kernels_match_plain(card, B, S, D, F, dtype, bt):
+    """At the layout's own block_t and at 64 and 128, where bf16 takes the
+    wgmma route; with used_blocks too (see _check_used_blocks)."""
     from repro_torch.kernels import moe_gmm
     gen = torch.Generator(device=card).manual_seed(S + D + F)
-    lay = _routed_layout(card, gen, B, S)
+    lay = _routed_layout(card, gen, B, S, block_t=bt)
     x, w, dy = _gmm_bwd_case(card, gen, lay, B, S, D, F, dtype)
     bmap, bt = lay.block_to_expert, lay.block_t
     n = (moe_gmm.grouped_matmul_dx.launches, moe_gmm.grouped_matmul_dw.launches)
@@ -1064,12 +1089,17 @@ def test_grouped_matmul_bwd_kernels_match_plain(card, B, S, D, F, dtype):
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
     unused = set(range(64)) - set(bmap.tolist())
     assert all(float(dw[e].abs().max()) == 0 for e in unused)
+    _check_used_blocks(moe_gmm, x, w, dy, lay)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,D,F,E,bt", [
     (512, 128, 256, 4, 64), (256, 64, 128, 8, 32), (256, 128, 128, 4, 128), (96, 64, 192, 3, 16),
-    (64, 64, 64, 2, 8)])
+    (64, 64, 64, 2, 8),
+    # the wgmma route off its 128 x 256 tiles (D, F odd multiples of 64), with
+    # experts that get no block (E above the blocks)
+    (512, 64, 192, 6, 64), (1024, 192, 1408, 9, 128), (768, 1408, 64, 5, 128),
+    (384, 192, 64, 16, 64), (640, 320, 448, 12, 128)])
 def test_grouped_matmul_bwd_kernels_match_plain_on_sweeps(card, T, D, F, E, bt, dtype):
     """Random block maps, in no order: dW lists each expert's blocks itself."""
     from repro_torch.kernels import moe_gmm
@@ -1084,6 +1114,41 @@ def test_grouped_matmul_bwd_kernels_match_plain_on_sweeps(card, T, D, F, E, bt, 
     tol = TOL[dtype]
     torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol, atol=tol)
+    assert torch.equal(dx, moe_gmm.grouped_matmul_dx(dy, w, bmap, bt))
+    assert torch.equal(dw, moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, E))
+    unused = set(range(E)) - set(bmap.tolist())
+    assert all(float(dw[e].abs().max()) == 0 for e in unused)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bt", [64, 128])
+@pytest.mark.parametrize("D,F", [(2048, 1408), (1408, 2048), (192, 64)])
+def test_grouped_matmul_bwd_on_a_layout_that_drops_most_assignments(card, D, F, bt, dtype):
+    """8 experts take nearly every assignment and capacity drops ~85% of them
+    (moonshot's router at its training start): most row blocks are trailing
+    padding, which the wgmma route skips under used_blocks. dy is zero on the
+    padding rows, as the model's backward gives it there (the combine's
+    gate is 0), so every call agrees bit for bit with and without it."""
+    from repro_torch.kernels import moe_gmm
+    gen = torch.Generator(device=card).manual_seed(D + F + bt)
+    B, S = 4, 256
+    lay = _routed_layout(card, gen, B, S, block_t=bt, hot=8)
+    kept = int((lay.row_token < B * S).sum())
+    assert kept < 0.25 * B * S * 6
+    x, w, dy = _gmm_bwd_case(card, gen, lay, B, S, D, F, dtype)
+    dy[lay.row_token == B * S] = 0
+    bmap, used = lay.block_to_expert, lay.used_blocks
+    assert int(used.item()) < bmap.numel() // 2
+    dx = moe_gmm.grouped_matmul_dx(dy, w, bmap, bt, used)
+    dw = moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, 64, used)
+    want_dx, want_dw = moe_gmm.grouped_matmul_bwd_plain(x, w, dy, bmap, bt, used_blocks=used)
+    tol = TOL[dtype]
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol, atol=tol)
+    assert torch.equal(dx, moe_gmm.grouped_matmul_dx(dy, w, bmap, bt))
+    assert torch.equal(dw, moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, 64))
+    assert torch.equal(dx, moe_gmm.grouped_matmul_dx(dy, w, bmap, bt, used))
+    assert torch.equal(dw, moe_gmm.grouped_matmul_dw(x, dy, bmap, bt, 64, used))
 
 
 def test_grouped_matmul_bwd_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -1106,3 +1171,5 @@ def test_grouped_matmul_bwd_wrappers_reject_what_the_kernels_do_not_take(card):
         moe_gmm.grouped_matmul_dx(dy.half(), w.half(), bmap, 8)
     with pytest.raises(ValueError, match="rows"):
         moe_gmm.grouped_matmul_dw(x, dy[:16], bmap, 8, 2)
+    with pytest.raises(ValueError, match="used_blocks"):
+        moe_gmm.grouped_matmul_dw(x, dy, bmap, 8, 2, bmap[:1].long())

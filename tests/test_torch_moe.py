@@ -165,6 +165,39 @@ def test_build_layout_keeps_the_jax_slots(arch, B, S, drops):
             assert mine == theirs, (b, e)
 
 
+@pytest.mark.parametrize("arch,B,S,drops", [
+    ("moonshot_v1_16b", 2, 16, True),
+    ("moonshot_e64", 1, 32, True),
+    ("moonshot_e64", 2, 16, True),
+    ("moonshot_e64", 3, 1, False),
+    ("moonshot_e64", 4, 64, True),        # block_t 32: experts of several blocks
+])
+def test_build_layout_counts_its_used_blocks(arch, B, S, drops):
+    """``used_blocks`` is sum_e ceil(kept_e / block_t), reckoned from the JAX
+    package's kept slots; a [1] int32 on the layout's device; every row past
+    ``used_blocks * block_t`` is padding, and every block below it holds a
+    kept assignment."""
+    cfg = _cfg(arch)
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    C = tmoe.capacity(S, k, E, cfg.moe.capacity_factor)
+    x, router = _route_inputs(cfg, B, S, 7 * S + B)
+    eidx, gate = tmoe.route(torch.as_tensor(x), torch.as_tensor(router), cfg)
+    bt = tmoe.block_rows(B, C)
+    lay = tmoe.build_layout(eidx, gate, C, bt, E)
+    jkept, _ = _jax_slots(jnp.asarray(eidx.numpy()), E, C)
+    jkept = np.asarray(jkept)
+    assert (~jkept).any() == drops
+    kept_e = np.bincount(eidx.reshape(B, S * k).numpy()[jkept], minlength=E)
+    want = int((-(-kept_e // bt)).sum())
+    assert lay.used_blocks.dtype == torch.int32 and tuple(lay.used_blocks.shape) == (1,)
+    assert lay.used_blocks.device == eidx.device
+    used = int(lay.used_blocks.item())
+    assert used == want < lay.block_to_expert.numel()
+    row_token = lay.row_token.numpy()
+    assert (row_token[used * bt:] == B * S).all()
+    assert all((row_token[i * bt:(i + 1) * bt] < B * S).any() for i in range(used))
+
+
 def _weights(cfg, rng):
     E, D, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_ff
     return {"router": rng.standard_normal((D, E), np.float32) / np.sqrt(D),

@@ -196,6 +196,91 @@ def test_gmm_bwd_plain_matches_vjp_of_the_reference(case, block_t):
     assert only_dx[1] is None and torch.equal(only_dx[0], dx)
 
 
+@pytest.mark.parametrize("block_t", [8, 32, 64, 128])
+@pytest.mark.parametrize("case", ["drops", "empty_expert", "no_drops"])
+def test_gmm_bwd_plain_with_used_blocks_is_bit_equal_and_matches_vjp(case, block_t):
+    """With the layout's ``used_blocks`` the plain backward leaves out the
+    trailing padding blocks: on the model's inputs (x and dy zero on padding
+    rows, as dispatch and the combine's gate 0 give them) it is bit-equal to
+    the call without it, and matches ``jax.vjp`` of the reference; on dy that
+    is not zero there, dx is zero past the used rows."""
+    B, S, E, k, D, F = 2, 24, 8, 2, 16, 24
+    cf = 100.0 if case == "no_drops" else 1.0
+    lay, C = _layout(B, S, E, k, cf, block_t + 1, block_t,
+                     skip_expert=3 if case == "empty_expert" else None)
+    bmap, used = lay.block_to_expert, lay.used_blocks
+    T = lay.row_token.numel()
+    pad = lay.row_token.numpy() == B * S
+    assert int(used.item()) < T // block_t
+    rng = np.random.default_rng(block_t + 1)
+    x, dy = rng.standard_normal((T, D)).astype(np.float32), rng.standard_normal((T, F))
+    w = rng.standard_normal((E, D, F)).astype(np.float32)
+    x[pad] = 0.0
+    dy = dy.astype(np.float32)
+    raw_dy = torch.as_tensor(dy.copy())
+    dy[pad] = 0.0
+    args = (torch.as_tensor(x), torch.as_tensor(w), torch.as_tensor(dy), bmap, block_t)
+    dx_u, dw_u = grouped_matmul_bwd_plain(*args, used_blocks=used)
+    dx, dw = grouped_matmul_bwd_plain(*args)
+    assert torch.equal(dx_u, dx) and torch.equal(dw_u, dw)
+    _, vjp = jax.vjp(lambda x_, w_: jref.grouped_matmul_ref(x_, w_, jnp.asarray(bmap.numpy()),
+                                                            block_t),
+                     jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(dy))
+    _close(dx_u, want_dx, "dx")
+    _close(dw_u, want_dw, "dw")
+    n = int(used.item()) * block_t
+    dx_raw, _ = grouped_matmul_bwd_plain(args[0], args[1], raw_dy, bmap, block_t,
+                                         used_blocks=used, need_dw=False)
+    assert not dx_raw[n:].any() and dx_raw[n:].shape[0] > 0
+
+
+@pytest.mark.parametrize("block_t", [8, 16, 32, 64, 128])
+def test_gmm_bwd_route_is_named_for_every_type_and_block_t(block_t):
+    """B4b's route for each (type, block_t) it takes: bf16 at block_t 64 and
+    128 on wgmma fed by TMA (csrc/moe_gmm_bwd.cu), bf16 below that on B4's
+    mma.sync kernels, float32 on the FMA loop (csrc/moe_gmm.cu)."""
+    from repro_torch.kernels import moe_gmm
+    assert moe_gmm.bwd_route(torch.float32, block_t) == moe_gmm.ROUTES[torch.float32]
+    bf16 = moe_gmm.bwd_route(torch.bfloat16, block_t)
+    assert "tensor cores" in bf16
+    if block_t >= 64:
+        assert bf16 == moe_gmm.WGMMA_ROUTE and "wgmma" in bf16 and "TMA" in bf16
+    else:
+        assert bf16 == moe_gmm.ROUTES[torch.bfloat16] and "mma.sync" in bf16
+    assert set(moe_gmm.WGMMA_BLOCK_TS) <= set(moe_gmm.BLOCK_TS)
+
+
+def test_used_blocks_reaches_the_backward_through_ops(monkeypatch):
+    """``moe_expert_ffn`` hands the layout's ``used_blocks`` to each product's
+    backward (B4b), and B4's forward runs without it."""
+    from repro_torch.kernels import moe_gmm
+    lay, _ = _layout(2, 16, 8, 2, 1.0, 5)
+    T = lay.row_token.numel()
+    seen = {"fwd": 0, "bwd": []}
+    fwd, bwd = moe_gmm.grouped_matmul_plain, moe_gmm.grouped_matmul_bwd_plain
+
+    def fwd_spy(*a, **kw):
+        seen["fwd"] += 1
+        assert not kw and len(a) == 4
+        return fwd(*a)
+
+    def bwd_spy(*a, used_blocks=None, **kw):
+        seen["bwd"].append(used_blocks)
+        return bwd(*a, used_blocks=used_blocks, **kw)
+
+    monkeypatch.setattr(moe_gmm, "grouped_matmul_plain", fwd_spy)
+    monkeypatch.setattr(moe_gmm, "grouped_matmul_bwd_plain", bwd_spy)
+    rng = np.random.default_rng(3)
+    xin, wg, wi, wo = _leaves(rng.standard_normal((T, 16)).astype(np.float32),
+                              *(rng.standard_normal(s).astype(np.float32)
+                                for s in ((8, 16, 32), (8, 16, 32), (8, 32, 16))))
+    y = ops.moe_expert_ffn(xin, wg, wi, wo, lay.block_to_expert, lay.block_t, lay.used_blocks)
+    y.sum().backward()
+    assert seen["fwd"] == 3 and len(seen["bwd"]) == 3
+    assert all(u is lay.used_blocks for u in seen["bwd"])
+
+
 def test_ops_grouped_matmul_function_matches_autograd_through_the_plain_forward():
     lay, _ = _layout(2, 16, 8, 2, 1.25, 4)
     bmap, bt = lay.block_to_expert, lay.block_t
