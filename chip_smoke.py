@@ -93,9 +93,9 @@ imports nothing of JAX. Phases, each of which fails the run:
    parameters; bf16, f32 AdamW, ``remat``) through the port's trainer, 10
    steps of 8 x 1024 tokens in 2 microbatches: the loss falls, steps 1-3
    run twice from the same weights give bit-equal losses, B3 (with its
-   chunk states) launches twice per layer per microbatch and B3b once;
-   steady step ms (wall, device), tokens/s, busy share, peak memory, the
-   largest kernels;
+   states every 16 steps) launches twice per layer per microbatch and B3b
+   once; steady step ms (wall, device), tokens/s, busy share, peak memory,
+   the largest kernels and the share of B3 and of B3b's two kernels;
 13. train: ``moonshot_v1_16b`` at full width cut to 2 layers (1.48 B
    parameters) the same way: B4 6 times per layer per microbatch, B4b's dx
    and dW 3 times each, B1 with its logsumexp twice and B1b once; the CE
@@ -114,9 +114,11 @@ width.
 
 Phase 3 also holds the scan's training path at ``falcon_mamba_7b``'s
 microbatch (Bt 4, S 1024, DI 8192, N 16, f32) and a small shape with h0 and
-dh_S: B3 with its chunk states (y and h_S bit-equal to the call without,
-the states against the plain forward's) and B3b against its plain version
-within 2e-3, two calls bit-equal; and B4b's dx and dW at
+dh_S: B3 with its states every 16 steps (y and h_S bit-equal to the call
+without, the states against the plain forward's) and B3b against its plain
+version within 2e-3, two calls bit-equal, with two of its blocks resident
+on an SM (the runtime's occupancy from its registers and shared memory);
+and B4b's dx and dW at
 ``moonshot_v1_16b``'s microbatch (4 x 1024 tokens routed to 64 experts,
 T_pad 32 768, block_t 128; gate/up and down) within 2e-4 in f32 and 2e-2 in
 bf16, two calls bit-equal, and, with dy zero on the padding rows (as
@@ -950,6 +952,10 @@ def _check_scan_bwd():
               f"{'ok' if ok and same else 'FAIL'}")
         check(ok, f"mamba_scan_bwd {label} disagrees with its plain version")
         check(same, f"mamba_scan_bwd {label} is not deterministic")
+        blocks = msb.blocks_per_sm(N)
+        print(f"[kernels] mamba_scan_bwd N{N}: {blocks} blocks of 256 threads resident on an "
+              f"SM (registers and shared memory, as the runtime reckons them)")
+        check(blocks >= 2, f"mamba_scan_bwd N{N} fits {blocks} block(s) on an SM, not 2")
         if label == SCAN_BWD_LINE:
             rows[("mamba_scan", label + ", with states", "float32")] = _time_mamba(
                 ms, fwd, "float32", st_err, states=True)
@@ -2134,7 +2140,8 @@ def phase_train_falcon():
         return {**_no_launches(), "mamba_scan": 2 * fwd, "mamba_scan_bwd": fwd}
     _, _, _, launches = _train_cut("falcon_mamba_7b", 8, "train-falcon", want,
                                    kernels=(("B3", ("mamba_scan_kernel",)),
-                                            ("B3b", ("mamba_scan_bwd_kernel",))))
+                                            ("B3b", ("mamba_scan_bwd_kernel",
+                                                     "mamba_scan_bwd_sum_kernel"))))
     return {n: launches[n] for n in ("mamba_scan_bwd",)}
 
 

@@ -117,10 +117,16 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 
 // --- the selective scan (B3, B3b) ---
 
-// time steps between the states B3 saves and B3b recomputes from: B3's chunk
-// of steps. The wrappers pass their own (mamba_scan.py::state_chunk, which
-// sizes the saved states) and both entry points refuse any other value.
+// time steps of B3's chunk: the rows of dt, x, B and C it stages at a time
 __host__ __device__ constexpr int scan_chunk(int N) { return N == 32 ? 16 : 32; }
+
+// time steps between the states B3 saves and B3b recomputes from, at every N:
+// B3b holds the states of such a span, 4 (channel, state) pairs a thread, in
+// 64 registers. It divides B3's chunk and is a multiple of B3's groups of
+// steps, so B3 writes each state at the first step of a group. The wrappers
+// pass their own (mamba_scan.py::state_chunk, which sizes the saved states)
+// and both entry points refuse any other value.
+__host__ __device__ constexpr int state_chunk(int) { return 16; }
 
 // --- Hopper's asynchronous pipeline (B4b's bf16 route, csrc/moe_gmm_bwd.cu) ---
 //

@@ -1,10 +1,12 @@
 // Mamba-1 selective scan for Hopper, with the state carried in and out:
 //   h_t = exp(dt_t A) * h_{t-1} + (dt_t x_t) B_t      h_{-1} = h0 (zeros if absent)
 //   y_t = C_t . h_t + D x_t                            and h_S written out.
-// On request (hs not null) also the state at the start of every chunk of TC
-// steps, hs [Bt, ceil(S/TC), DI, N] float32 (chunk 0's is h0): the backward
-// (mamba_scan_bwd.cu) recomputes each chunk's states from them. Writing them
-// changes nothing else: y and h_S are the same bits with or without.
+// On request (hs not null) also the state at the start of every SC =
+// rt::state_chunk(N) = 16 steps, hs [Bt, ceil(S/SC), DI, N] float32 (the
+// first is h0): the backward (mamba_scan_bwd.cu) recomputes the states of
+// each such span from them. SC divides the staging chunk TC (32, or 16 at N
+// 32), so a state is written at every half-chunk or every chunk. Writing
+// them changes nothing else: y and h_S are the same bits with or without.
 // dt, x [Bt,S,DI]; B, C [Bt,S,N] (float32 or bfloat16, any strides);
 // A [DI,N], D [DI], h0 and h_S [Bt,DI,N] float32, contiguous; y [Bt,S,DI]
 // contiguous, in the inputs' type.
@@ -77,7 +79,9 @@ mamba_scan_kernel(const T* __restrict__ dt, const T* __restrict__ x, const T* __
                   int64_t sCb, int64_t sCt, int64_t sCn, int vec_dx, int vec_bc) {
   constexpr int NP = N / kP;                // states of a thread
   constexpr int TC = rt::scan_chunk(N);     // time steps of a chunk
-  constexpr int SG = NP >= 16 ? 32 / NP : NP == 8 ? 4 : 8;   // steps of a group, TC % SG == 0
+  constexpr int SC = rt::state_chunk(N);    // time steps between saved states
+  constexpr int SG = NP >= 16 ? 32 / NP : NP == 8 ? 4 : 8;   // steps of a group
+  static_assert(TC % SC == 0 && SC % SG == 0, "a saved state falls on a group's first step");
   constexpr int kThreads = kCh * kP;
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   __shared__ __align__(16) T s_dt[2][TC][kCh];
@@ -179,6 +183,7 @@ mamba_scan_kernel(const T* __restrict__ dt, const T* __restrict__ x, const T* __
   };
 
   const int nchunks = (S + TC - 1) / TC;
+  const int nstates = (S + SC - 1) / SC;
   stage(0, 0);
   float a2[NP], h[NP];
 #pragma unroll
@@ -194,15 +199,16 @@ mamba_scan_kernel(const T* __restrict__ dt, const T* __restrict__ x, const T* __
     __syncthreads();                        // ... for all; chunk k-1's buffer is free
     if (k > 0) write_y(k - 1, buf ^ 1);     // before its pieces take chunk k+1
     if (k + 1 < nchunks) stage(k + 1, buf ^ 1);
-    if (hs != nullptr && live) {            // the state entering chunk k
-      float* dst = hs + ((static_cast<int64_t>(b) * nchunks + k) * DI + d) * N + n0;
-#pragma unroll
-      for (int i = 0; i < NP; ++i) dst[i] = h[i];
-    }
     // SG steps at a time: their loads, exponentials and y shuffles are
     // independent, only h carries from step to step. Rows of the chunk past
     // S are zeros: exp(0) = 1 and dt*x = 0 leave h as it is.
     for (int r0 = 0; r0 < min(TC, S - k * TC); r0 += SG) {
+      if (hs != nullptr && live && r0 % SC == 0) {   // the state entering step k TC + r0
+        float* dst = hs + ((static_cast<int64_t>(b) * nstates + (k * TC + r0) / SC) * DI + d) *
+                              N + n0;
+#pragma unroll
+        for (int i = 0; i < NP; ++i) dst[i] = h[i];
+      }
       float xv[SG], e[SG][NP], bx[SG][NP], cv[SG][NP], yv[SG];
 #pragma unroll
       for (int j = 0; j < SG; ++j) {
@@ -291,8 +297,8 @@ int dispatch_n(int N, const void* dt, const void* x, const void* Bm, const void*
 
 // Plain C entry point, loaded with ctypes. Strides are in elements, three for
 // each of dt, x, B, C (batch, time, channel or state). h0 may be null (zeros);
-// hs may be null (no chunk states); chunk must be rt::scan_chunk(N). Returns
-// the cudaError_t of the launch.
+// hs may be null (no saved states); chunk must be rt::state_chunk(N).
+// Returns the cudaError_t of the launch.
 extern "C" int mamba_scan_fwd(const void* dt, const void* x, const void* Bm, const void* Cm,
                               const void* A, const void* D, const void* h0, void* y, void* hS,
                               void* hs, int dtype, int Bt, int S, int DI, int N, int chunk,
@@ -300,7 +306,7 @@ extern "C" int mamba_scan_fwd(const void* dt, const void* x, const void* Bm, con
                               int64_t sxb, int64_t sxt, int64_t sxd,
                               int64_t sBb, int64_t sBt, int64_t sBn,
                               int64_t sCb, int64_t sCt, int64_t sCn, void* stream) {
-  if (chunk != rt::scan_chunk(N)) return static_cast<int>(cudaErrorInvalidValue);
+  if (chunk != rt::state_chunk(N)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t st[12] = {sdb, sdt, sdd, sxb, sxt, sxd, sBb, sBt, sBn, sCb, sCt, sCn};
   const float* a = static_cast<const float*>(A);

@@ -11,9 +11,9 @@ Beyond the TPU kernel, which starts from zeros and drops the final state,
 it takes ``h0`` ``[Bt, DI, N]`` (zeros when ``None``) and returns ``h_S``:
 prefill hands that state to decode. On request (``states=True``, the
 training forward) it also writes the float32 state at the start of every
-chunk of :func:`state_chunk` steps, ``[Bt, ceil(S / T_c), DI, N]`` (chunk
-0's is h0): the backward, B3b (``mamba_scan_bwd.py``), recomputes each
-chunk's states from them. y and h_S are the same bits with or without.
+:func:`state_chunk` steps, ``[Bt, ceil(S / T_c), DI, N]`` (the first is
+h0): the backward, B3b (``mamba_scan_bwd.py``), recomputes the states of
+each span from them. y and h_S are the same bits with or without.
 
 The kernel is ``csrc/mamba_scan.cu``: one block per 64 channels loops over
 t, one thread per (channel, N/4 states) with the states in registers, each
@@ -48,11 +48,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def state_chunk(N: int) -> int:
-    """Time steps between the saved states: the kernel's chunk of steps (32,
-    16 at N 32), so that B3b holds a chunk's states of 64 channels in 128 KB
-    of shared memory. The wrappers pass it to B3 and B3b, which refuse it
-    unless it is their own (``scan_chunk`` in ``csrc/common.cuh``)."""
-    return 16 if N == 32 else 32
+    """Time steps between the saved states, 16 at every N: B3b keeps the
+    states of such a span in registers, 16 steps x 4 (channel, state) pairs
+    a thread in 64 of them. It divides B3's chunk of staged steps (32, 16 at
+    N 32), so B3 writes a state at every half-chunk or chunk. The wrappers
+    pass it to B3 and B3b, which refuse it unless it is their own
+    (``state_chunk`` in ``csrc/common.cuh``)."""
+    return 16
 
 
 def mamba_scan_plain(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

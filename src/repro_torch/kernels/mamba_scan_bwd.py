@@ -15,19 +15,29 @@ optionally ``dh_S``, with ``a_t = exp(dt_t A)``::
     dh0   = a_0 g_0
 
 The states ``h_t`` come from the float32 states B3 saves at the start of
-every chunk of ``T_c`` steps (``mamba_scan(..., states=True)``): each
-chunk's are recomputed forward from its checkpoint, then the chunk runs in
-reverse. The recurrence is never run backwards as ``(h_t - bx_t) / a_t``:
-``a_t`` underflows to 0 at large ``dt |A|``.
+every ``T_c`` = :func:`~repro_torch.kernels.mamba_scan.state_chunk` = 16
+steps (``mamba_scan(..., states=True)``): each span's are recomputed forward
+from its saved state, then the span runs in reverse. The recurrence is never
+run backwards as ``(h_t - bx_t) / a_t``: ``a_t`` underflows to 0 at large
+``dt |A|``.
 
-The kernel is ``csrc/mamba_scan_bwd.cu``: B3's layout, one block per
-(batch row, 64 channels), one thread per (channel, N/4 states) with its
-states' ``A log2 e`` in registers; a chunk's recomputed states in shared
-memory; ``ex2.approx`` for every exponential. The sums over channels (dB,
-dC) and over the batch (dA, dD) leave each block as partials, in a fixed
-order, and are summed over their leading axis here: no atomics, so two
-calls give the same bits. It takes float32 only (the model casts dt, x, B
-and C to float32 before the scan) and N in {4, 8, 16, 32}.
+The kernel is ``csrc/mamba_scan_bwd.cu``: one block of 256 threads per
+(batch row, 1024 / N channels), one thread per 2 channels x 2 states with
+their ``A log2 e`` in registers, the N / 2 threads of a channel pair in one
+warp. A span's inputs arrive in shared memory by double-buffered
+``cp.async``; the thread's 16 recomputed states of the span stay in 64
+registers (the loops fully unrolled), so a block takes ~52 KB of shared
+memory at N 16 and at most 128 registers a thread, and two blocks share an
+SM. The reverse runs steps in groups (two at N >= 16) whose loads,
+exponentials (``ex2.approx``) and shuffle rounds interleave; the sums over a
+channel pair's lanes (dx, ddt) and over a warp's pairs (dB, dC) are halving
+reduce-scatters. What holds it above its bound of bytes (~0.24 ms at
+falcon_mamba_7b's microbatch) is the instructions its warps issue, ~108 a
+step of a warp in the unrolled span. The sums over channels (dB, dC) and
+over the batch (dA, dD) leave each block as partials, which a second kernel
+of the same source sums in a fixed order: no atomics, so two calls give the
+same bits. It takes float32 only (the model casts dt, x, B and C to float32
+before the scan) and N in {4, 8, 16, 32}.
 
 :func:`mamba_scan_bwd_plain` is the same reverse recurrence in plain
 PyTorch, a loop over t in float32: the CPU path and the kernel's yardstick
@@ -93,11 +103,30 @@ def mamba_scan_bwd_plain(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor, C: 
 _FN = None
 
 
+def block_channels(N: int) -> int:
+    """Channels of one block of the kernel: 256 threads of 2 channels x 2
+    states each (``kThreads / P * kCT`` in the source)."""
+    return 1024 // N
+
+
+def blocks_per_sm(N: int) -> int:
+    """Blocks of the kernel resident on one SM at d_state N, as the CUDA
+    runtime reckons them from its registers and shared memory (on the card:
+    it builds the kernel)."""
+    fn = build.load("mamba_scan_bwd").mamba_scan_bwd_blocks_per_sm
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(N)
+    if n < 0:
+        raise RuntimeError(f"mamba_scan_bwd occupancy query failed with CUDA error {-n}")
+    return n
+
+
 def _kernel():
     global _FN
     if _FN is None:
         fn = build.load("mamba_scan_bwd").mamba_scan_bwd
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -146,26 +175,29 @@ def mamba_scan_bwd(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor, C: torch.
     check_capability(x.device)
     Bt, S, DI = x.shape
     N = B.shape[2]
-    tiles = -(-DI // 64)
+    tiles = -(-DI // block_channels(N))
     dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
     ddt, dx = torch.empty_like(x), torch.empty_like(x)
-    dh0 = torch.empty((Bt, DI, N), dtype=torch.float32, device=dev)
-    # per-block partials, summed below over their leading axis in a fixed order
-    dbc = torch.empty((tiles, Bt, S, 2 * N), dtype=torch.float32, device=dev)
-    dA_b = torch.empty((Bt, DI, N), dtype=torch.float32, device=dev)
-    dD_b = torch.empty((Bt, DI), dtype=torch.float32, device=dev)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA, dD = torch.empty((DI, N), **f32), torch.empty((DI,), **f32)
+    dh0 = torch.empty((Bt, DI, N), **f32)
+    # per-block partials, summed by the kernel's second pass in a fixed order
+    dbc = torch.empty((tiles, Bt, S, 2 * N), **f32)
+    dA_b = torch.empty((Bt, DI, N), **f32)
+    dD_b = torch.empty((Bt, DI), **f32)
     with torch.cuda.device(dev):
         err = _kernel()(
             dt.data_ptr(), x.data_ptr(), B.data_ptr(), C.data_ptr(), A.data_ptr(),
             D.data_ptr(), states.data_ptr(), dy.data_ptr(),
             None if dh_S is None else dh_S.data_ptr(), ddt.data_ptr(), dx.data_ptr(),
-            dbc.data_ptr(), dA_b.data_ptr(), dD_b.data_ptr(), dh0.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), dh0.data_ptr(),
+            dbc.data_ptr(), dA_b.data_ptr(), dD_b.data_ptr(),
             Bt, S, DI, N, state_chunk(N), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"mamba_scan_bwd kernel launch failed with CUDA error {err}")
     mamba_scan_bwd.launches += 1
-    dbc = dbc.sum(0)
-    return ScanGrads(ddt, dx, dbc[..., :N], dbc[..., N:], dA_b.sum(0), dD_b.sum(0), dh0)
+    return ScanGrads(ddt, dx, dB, dC, dA, dD, dh0)
 
 
 mamba_scan_bwd.launches = 0

@@ -945,7 +945,8 @@ def _scan_args(card, Bt, S, DI, N, dtype=torch.float32, h0=True, big_dt=False):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Bt,S,DI,N", [(1, 32, 8192, 16), (2, 77, 100, 4), (3, 40, 48, 32),
-                                      (2, 65, 64, 8)])
+                                      (2, 65, 64, 8),
+                                      (2, 203, 70, 16)])   # a state at every half-chunk
 def test_mamba_scan_states_leave_y_and_h_bit_equal(card, Bt, S, DI, N, dtype):
     from repro_torch.kernels import mamba_scan as ms
     args, _ = _scan_args(card, Bt, S, DI, N, dtype)
@@ -969,6 +970,9 @@ def test_mamba_scan_states_leave_y_and_h_bit_equal(card, Bt, S, DI, N, dtype):
     (2, 77, 100, 4, True),             # ragged: S past a chunk, DI not a block multiple
     (3, 40, 48, 32, True),
     (2, 96, 128, 8, True),
+    (1, 1024, 8192, 16, False),        # falcon_mamba_7b's widths over 64 spans of 16 steps
+    (2, 203, 200, 16, True),           # S past a span and its half, DI past a 64-channel tile
+    (2, 50, 70, 8, True),              # DI % 4 != 0: 4-byte copies, DI past a 128-channel tile
 ])
 def test_mamba_scan_bwd_kernel_matches_plain(card, Bt, S, DI, N, h0, big_dt):
     from repro_torch.kernels import mamba_scan as ms
@@ -989,6 +993,14 @@ def test_mamba_scan_bwd_kernel_matches_plain(card, Bt, S, DI, N, h0, big_dt):
         assert g.shape == w.shape and torch.isfinite(g).all(), name
         torch.testing.assert_close(g, w, rtol=tol, atol=tol, msg=name)
         assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+def test_mamba_scan_bwd_keeps_two_blocks_an_sm(card, N):
+    """B3b's registers (at most 128 a thread) and shared memory leave room
+    for two of its blocks of 256 threads on one SM at every d_state."""
+    from repro_torch.kernels import mamba_scan_bwd as msb
+    assert msb.blocks_per_sm(N) >= 2
 
 
 def test_mamba_scan_bwd_wrapper_rejects_what_the_kernel_does_not_take(card):

@@ -11,7 +11,7 @@ Functions against autograd through the plain forwards, on the CPU.
   blocks, at every ``block_t``;
 * ``ops.mamba_scan``, ``ops.grouped_matmul`` and ``moe_forward``'s dispatch
   and combine under autograd against autograd through the plain forwards;
-* the chunk states of the plain forward at several ``T_c``.
+* the chunk states of the plain forward at several ``T_c``, 16 (``state_chunk``) among them.
 
 Inputs are float32 from seeded numpy. Tolerance: rtol 1e-3, atol 1e-4, the
 reference's gradient tolerance (tests/test_attention.py:40).
@@ -32,7 +32,7 @@ from repro.models.mamba import _ssm_chunk_scan  # noqa: E402
 from repro_torch.configs import ModelConfig  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan_plain, state_chunk  # noqa: E402
-from repro_torch.kernels.mamba_scan_bwd import mamba_scan_bwd_plain  # noqa: E402
+from repro_torch.kernels.mamba_scan_bwd import block_channels, mamba_scan_bwd_plain  # noqa: E402
 from repro_torch.kernels.moe_gmm import grouped_matmul_bwd_plain, grouped_matmul_plain  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 
@@ -68,7 +68,8 @@ def _plain_bwd(dt, x, B, C, A, D, h0, dy, dh_S, chunk):
 
 
 @pytest.mark.parametrize("Bt,S,DI,N,chunk", [
-    (2, 32, 16, 8, 8), (1, 40, 12, 4, 16), (2, 24, 8, 16, 32), (1, 17, 8, 32, 16)])
+    (2, 32, 16, 8, 8), (1, 40, 12, 4, 16), (2, 24, 8, 16, 32), (1, 17, 8, 32, 16),
+    (2, 40, 12, 16, 16), (1, 33, 8, 8, 16)])         # state_chunk(N) = 16 at every N
 def test_scan_bwd_plain_matches_vjp_of_the_reference(Bt, S, DI, N, chunk):
     dt, x, B, C, A, D, _, dy, _ = _scan_inputs(Bt, S, DI, N, S + N)
     y, vjp = jax.vjp(jref.mamba_scan_ref, *map(jnp.asarray, (dt, x, B, C, A, D)))
@@ -81,7 +82,8 @@ def test_scan_bwd_plain_matches_vjp_of_the_reference(Bt, S, DI, N, chunk):
 
 @pytest.mark.parametrize("big_dt", [False, True], ids=["moderate_dt", "dt_A_underflows"])
 @pytest.mark.parametrize("Bt,S,DI,N,chunk,jchunk", [
-    (2, 32, 16, 8, 8, 8), (1, 48, 12, 16, 32, 16), (2, 20, 8, 4, 32, 20)])
+    (2, 32, 16, 8, 8, 8), (1, 48, 12, 16, 32, 16), (2, 20, 8, 4, 32, 20),
+    (1, 48, 12, 16, 16, 16), (2, 37, 8, 8, 16, 8)])  # state_chunk(N) = 16 at every N
 def test_scan_bwd_plain_matches_vjp_of_the_chunk_scan(Bt, S, DI, N, chunk, jchunk, big_dt):
     """h0 in, dh_S in, dh0 out, against the JAX model's own scan (without
     the D term, which it adds outside: D = 0 here and dD checked apart).
@@ -102,7 +104,8 @@ def test_scan_bwd_plain_matches_vjp_of_the_chunk_scan(Bt, S, DI, N, chunk, jchun
     _close(g.dD, (dy * x).sum((0, 1)), "dD")
 
 
-@pytest.mark.parametrize("N,chunk", [(8, 4), (8, 7), (16, 32), (32, 16), (4, 64)])
+@pytest.mark.parametrize("N,chunk", [(8, 4), (8, 7), (16, 32), (32, 16), (4, 64), (16, 16),
+                                     (4, 16)])
 def test_plain_forward_states_are_the_states_at_each_chunk_start(N, chunk):
     Bt, S, DI = 2, 45, 8
     dt, x, B, C, A, D, h0, _, _ = map(torch.as_tensor, _scan_inputs(Bt, S, DI, N, chunk))
@@ -343,5 +346,14 @@ def test_moe_dispatch_and_combine_backwards_match_autograd_through_the_gathers(
 
 
 def test_state_chunk_keeps_a_chunk_of_64_channels_in_128_kb():
+    """B3b keeps a span's recomputed states in registers: a thread's 2
+    channels x 2 states x state_chunk(N) steps in 64 of its 128 registers, a
+    block's 1024 / N channels (64 at N 16) in 64 KB, two blocks an SM in 128
+    KB of its 256 KB register file. B3 writes each state at the start of one
+    of its groups of steps, so the span divides B3's chunk."""
     for N in (4, 8, 16, 32):
-        assert state_chunk(N) * N * 64 * 4 <= 128 * 1024
+        per_thread = state_chunk(N) * 2 * 2
+        assert per_thread <= 64
+        assert state_chunk(N) * N * block_channels(N) * 4 <= 64 * 1024
+        assert 2 * 256 * per_thread * 4 <= 128 * 1024
+        assert (16 if N == 32 else 32) % state_chunk(N) == 0
