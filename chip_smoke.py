@@ -102,7 +102,20 @@ imports nothing of JAX. Phases, each of which fails the run:
    beside the aux loss, the share of assignments dropped by capacity and of
    padding rows in B4's layout, and per MoE layer what the router sees
    (experts chosen, logits' spread, the common share of its input), on a
-   microbatch of the stream and on one of uniform tokens.
+   microbatch of the stream and on one of uniform tokens;
+14. train on a device mesh: a one-rank NCCL group (no network) and a
+   ``(1, 1)`` ``("data", "model")`` mesh, the mesh path forced on although
+   one device shards nothing (DTensor parameters and optimizer state placed
+   by the sharding rules, ``shard_act``, every kernel through ``local_map``):
+   ``train_100m`` at full width and depth through ``launch/train.py
+   --force-mesh`` (10 steps of 8 x 1024 tokens, 2 microbatches, a sharded
+   checkpoint every 5 steps, then a run resumed from step 5 whose losses
+   equal the first run's bit for bit), and 3 f32 steps of phase 7's cuts
+   (``falcon_mamba_7b`` 2 layers, ``moonshot_v1_16b`` 1 layer); each against
+   the plain path from the same seed, losses and gradient norms bit-equal
+   (else within 2e-3, the gap printed); B1, B1b, B3, B3b, B4 and B4b each
+   launched on the mesh path; then a steady step of ``train_100m`` on both
+   paths (plain, mesh, mesh, plain), wall and device ms.
 
 Phase 7 also holds, in f32 card vs CPU within 2e-3: ``gemma3_12b`` cut to
 one period (5 local layers, 1 global) at full width, a prompt of 1100
@@ -2185,8 +2198,8 @@ def phase_train_moonshot():
                      "common": (x32.mean(0).square().sum() / x32.square().sum(1).mean()).item()})
         return eidx, gate
 
-    def counted(eidx, gate, C, block_t, num_experts):
-        lay = build0(eidx, gate, C, block_t, num_experts)
+    def counted(eidx, gate, C, block_t, num_experts, experts=None):
+        lay = build0(eidx, gate, C, block_t, num_experts, experts)
         kept = int((lay.token_rows < lay.row_token.numel()).sum())
         seen[-1].update(kept=kept, assigned=eidx.numel(), rows=lay.row_token.numel())
         return lay
@@ -2220,6 +2233,201 @@ def phase_train_moonshot():
     finally:
         tmoe.route, tmoe.build_layout = route0, build0
     return {n: launches[n] for n in ("grouped_matmul_dx", "grouped_matmul_dw")}
+
+
+MESH_ARGS = ["--arch", "train_100m", "--seq", "1024", "--batch", "8", "--accum", "2",
+             "--ckpt-every", "5"]
+# phase 7's train cuts: (arch, layers, S) at full width, f32, 2 x S tokens
+MESH_CUTS = (("falcon_mamba_7b", 2, 128), ("moonshot_v1_16b", 1, 64))
+MESH_KERNELS = ("flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd",
+                "grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")
+
+
+def phase_train_mesh():
+    """Phase 14: the mesh path of training on a one-rank NCCL group and a
+    ``(1, 1)`` mesh, against the plain path; returns each kernel's launches
+    on the mesh path (the counts set to 0 just before each meshed run and
+    read just after)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_process_group
+
+    dev = init_process_group()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"process group {dist.get_backend()} of {dist.get_world_size()}")
+    wrappers = _wrappers()
+    counts = dict.fromkeys(wrappers, 0)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        for n, w in wrappers.items():
+            counts[n] += w.launches
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "mesh")
+        meshed = counted(lambda: train.main(MESH_ARGS + ["--steps", "10", "--force-mesh",
+                                                         "--ckpt", ck]))
+        plain = train.main(MESH_ARGS + ["--steps", "10"])
+        _same_run("train_100m bf16, 10 steps of 8 x 1024 tokens", meshed, plain)
+        check(sorted(os.listdir(ck)) == ["step_000000005", "step_000000010"],
+              f"checkpoints {sorted(os.listdir(ck))}")
+        with open(os.path.join(ck, "step_000000005", "MANIFEST.json")) as f:
+            leaves = json.load(f)["leaves"]
+        shutil.rmtree(os.path.join(ck, "step_000000010"))
+        resumed = counted(lambda: train.main(MESH_ARGS + ["--steps", "5", "--force-mesh",
+                                                          "--ckpt", ck]))
+        check(resumed["start"] == 5 and resumed["losses"] == meshed["losses"][5:],
+              f"resumed at {resumed['start']}: {resumed['losses']} != {meshed['losses'][5:]}")
+        print(f"[mesh] sharded checkpoint at step 5 ({len(leaves)} leaves, "
+              f"{sum(len(v['shards']) for v in leaves.values())} shard files on this mesh), "
+              f"restored on the mesh: steps 6-10 equal the uninterrupted run's bit for bit")
+    for arch, layers, S in MESH_CUTS:
+        _mesh_cut(arch, layers, S, counted)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {n: counts[n] for n in MESH_KERNELS}
+    print(f"[mesh] kernel launches on the mesh path {launches}")
+    check(all(launches.values()), f"a kernel of the mesh path was not launched: {launches}")
+    _mesh_steady()
+    dist.destroy_process_group()
+    print(f"[mesh] device {dev}; process group destroyed")
+    return counts
+
+
+def _same_run(name, meshed, plain):
+    """The mesh path's losses and gradient norms against the plain path's:
+    bit-equal, or within 2e-3 with the gap printed."""
+    gaps = {k: max(abs(a - b) for a, b in zip(meshed[k], plain[k]))
+            for k in ("losses", "grad_norms")}
+    equal = all(meshed[k] == plain[k] for k in gaps)
+    print(f"[mesh] {name}: mesh vs plain path losses {[round(x, 6) for x in meshed['losses']]}"
+          f"; {'bit-equal' if equal else 'not bit-equal'} (max gaps: losses "
+          f"{gaps['losses']:.3e}, grad norms {gaps['grad_norms']:.3e})")
+    check(max(gaps.values()) <= TRAIN_TOL, f"{name}: mesh vs plain gaps {gaps}")
+
+
+def _mesh_cut(arch, layers, S, counted, steps=3):
+    """3 f32 steps of phase 7's cut of ``arch``, mesh path then plain path,
+    from the same weights and batches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.distributed.sharding import TRAIN_RULES, make_resolver
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import LM
+    from repro_torch.models.layers import sharding_context
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = replace(get_config(arch), dtype="float32", num_layers=layers)
+    lm = LM(cfg, device="cuda", seed=11, attn_block=64)
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=2,
+                                    seed=0))
+    batches = [stream.batch(i) for i in range(steps)]
+    mesh = make_local_mesh(model_axis=1)
+    recs, last = {}, {}
+    for path in ("mesh", "plain"):
+        opt = make_optimizer("adamw", warmup_cosine(3e-3, 20, steps), cfg)
+        params = {n: p.detach() for n, p in lm.params().items()}
+        state, place, ctx = opt.init(params), None, sharding_context(None)
+        if path == "mesh":
+            params, state, _ = train.place_train_state(lm, opt, params, state, mesh)
+            place = train.batch_placer(mesh, cfg, 1, S)
+            ctx = sharding_context(make_resolver(mesh, TRAIN_RULES))
+        step = make_train_step(lm, opt, accum=2, place_batch=place)
+
+        def run(params=params, state=state):
+            rec = {"losses": [], "grad_norms": []}
+            with ctx:
+                for b in batches:
+                    params, state, m = step(params, state, b)
+                    rec["losses"].append(float(m["loss"]))
+                    rec["grad_norms"].append(float(m["grad_norm"]))
+            return rec, params
+        recs[path], p = counted(run) if path == "mesh" else run()
+        last[path] = {n: (t.full_tensor() if hasattr(t, "full_tensor") else t) for n, t in
+                      p.items()}
+    _same_run(f"{arch} cut to {layers} layer{'s' * (layers > 1)}, f32, {steps} steps of 2 x "
+              f"{S} tokens", recs["mesh"], recs["plain"])
+    err = max((last["mesh"][n] - last["plain"][n]).abs().max().item() for n in last["plain"])
+    print(f"[mesh]   parameters after {steps} steps: mesh vs plain max_abs_err {err:.3e}")
+    check(np.isfinite(err) and err <= TRAIN_TOL, f"{arch} parameters mesh vs plain {err}")
+
+
+def _mesh_steady(warm=2, timed=5, profiled=3):
+    """A steady train step of train_100m on the plain path and the mesh path,
+    in the order plain, mesh, mesh, plain: wall ms to a synchronize and
+    device ms from the profiler."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.distributed.sharding import TRAIN_RULES, make_resolver
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import LM
+    from repro_torch.models.layers import sharding_context
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = get_config("train_100m")
+    lm = LM(cfg, device="cuda", seed=0, attn_block=TRAIN_BLOCK)
+    mesh = make_local_mesh(model_axis=1)
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, global_batch=8))
+    batches = [stream.batch(i) for i in range(warm + timed + profiled)]
+    out = {"plain": [], "mesh": []}
+    for path in ("plain", "mesh", "mesh", "plain"):
+        opt = make_optimizer("adamw", warmup_cosine(3e-3, 20, 100), cfg)
+        params = {n: p.detach() for n, p in lm.params().items()}
+        state, place, ctx = opt.init(params), None, sharding_context(None)
+        if path == "mesh":
+            params, state, _ = train.place_train_state(lm, opt, params, state, mesh)
+            place = train.batch_placer(mesh, cfg, 4, 1024)
+            ctx = sharding_context(make_resolver(mesh, TRAIN_RULES))
+        step = make_train_step(lm, opt, accum=2, place_batch=place)
+        with ctx:
+            for b in batches[:warm]:
+                params, state, _ = step(params, state, b)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for b in batches[warm:warm + timed]:
+                params, state, _ = step(params, state, b)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) / timed * 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for b in batches[warm + timed:]:
+                    params, state, _ = step(params, state, b)
+                torch.cuda.synchronize()
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / profiled
+        out[path].append((wall, busy))
+        print(f"[mesh] steady step of train_100m (8 x 1024 tokens, 2 microbatches), {path} "
+              f"path: {wall:.1f} ms wall, {busy:.1f} ms device ({busy / wall:.1%} busy)")
+        del params, state
+    pw, pd = (float(np.mean([x[i] for x in out["plain"]])) for i in (0, 1))
+    mw, md = (float(np.mean([x[i] for x in out["mesh"]])) for i in (0, 1))
+    print(f"[mesh] mean of two runs each: plain {pw:.1f} ms wall, {pd:.1f} ms device; mesh "
+          f"{mw:.1f} ms wall, {md:.1f} ms device: the mesh path's host cost {mw - pw:+.1f} ms "
+          f"a step ({mw / pw:.2f}x the wall), device {md - pd:+.1f} ms")
 
 
 def release_images():
@@ -2617,6 +2825,8 @@ def main() -> int:
     launches.update(timed("train falcon_mamba_7b", phase_train_falcon))
     release_images()
     launches.update(timed("train moonshot_v1_16b", phase_train_moonshot))
+    release_images()
+    mesh_launches = timed("train on a mesh", phase_train_mesh)
 
     kernels = []
     for name, label, dname, replaces, source in (
@@ -2643,6 +2853,7 @@ def main() -> int:
         r = rows[(name, label, dname)]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
+                        "launches_mesh": mesh_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

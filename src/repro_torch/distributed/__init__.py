@@ -1,4 +1,6 @@
-"""Distributed support of the port: checkpoints (one card) and the sharding
-rules' resolution (``sharding``: the rule tables and ``resolve_spec`` over a
-mesh given by its axis names and sizes). Placing tensors onto a device mesh
-and gradient compression are not ported yet (ROADMAP A6)."""
+"""Distributed support of the port: the sharding rules and their placements
+on a ``DeviceMesh`` (``sharding``: the rule tables, ``resolve_spec``,
+DTensor placements, ``tree_shardings``, ``make_resolver``, ``place``) and
+sharded, elastic checkpoints (``checkpoint``). The meshes themselves are
+built in ``launch.mesh``. Gradient compression is not ported yet (ROADMAP
+queue A item 2)."""

@@ -13,15 +13,29 @@ degrade gracefully: ``("pod", "data")`` on a mesh without ``pod`` acts as
 ``("data",)``.
 
 A mesh is given by its axis names and sizes (:class:`MeshShape`, the
-counterpart of JAX's ``AbstractMesh``); a resolved spec is a tuple with one
-entry per leading dim: ``None``, an axis name, a tuple of names, or
-:data:`UNCONSTRAINED`, as the JAX ``PartitionSpec`` holds them.
+counterpart of JAX's ``AbstractMesh``) or is a ``DeviceMesh`` with named
+dims; a resolved spec is a tuple with one entry per leading dim: ``None``,
+an axis name, a tuple of names, or :data:`UNCONSTRAINED`, as the JAX
+``PartitionSpec`` holds them.
+
+On a ``DeviceMesh`` a spec becomes DTensor placements, one per mesh dim
+(:func:`spec_placements`): an axis that a dim takes is ``Shard(dim)`` on
+that mesh dim, every other mesh dim ``Replicate()``. A dim split over a
+tuple of axes (``("pod", "data")``) is sharded over those mesh dims in the
+mesh's order, outer first, as JAX splits it. :class:`NamedSharding` pairs a
+mesh with a spec, as JAX's does; :func:`tree_shardings` gives one a
+parameter, :func:`make_resolver` one an activation for
+``models.layers.shard_act``, and :func:`place` puts a tensor that every
+rank holds whole onto its shards with no collective: each rank slices its
+own.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
+
+import torch
 
 Axes = Tuple[Optional[str], ...]
 RuleTable = Dict[str, Sequence[Tuple[str, ...]]]
@@ -211,3 +225,171 @@ def rules_for_cfg(mode: str, cfg) -> RuleTable:
     if mode == "train" and getattr(cfg, "fsdp_pod", False):
         rules["w_embed"] = [("pod", "data")]
     return rules
+
+
+# --------------------------------------------------------------------------
+# Placements on a DeviceMesh
+# --------------------------------------------------------------------------
+
+
+def mesh_shape(mesh) -> MeshShape:
+    """The :class:`MeshShape` of a ``DeviceMesh`` (or of a MeshShape)."""
+    if isinstance(mesh, MeshShape):
+        return mesh
+    if not mesh.mesh_dim_names:
+        raise ValueError("a mesh for the sharding rules needs named dims")
+    return MeshShape(tuple(mesh.mesh.shape), tuple(mesh.mesh_dim_names))
+
+
+def spec_placements(mesh, spec: tuple, current=None) -> list:
+    """DTensor placements (one per mesh dim) of a resolved spec.
+
+    ``UNCONSTRAINED`` keeps, on a mesh dim that no dim of the spec takes, the
+    ``current`` placement where that shards an unconstrained dim; anything
+    else there (a ``Partial`` included) becomes ``Replicate``. Raises when a
+    tuple of axes is out of the mesh's order, which DTensor cannot express.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh_shape(mesh).axis_names
+    out: list = [Replicate()] * len(names)
+    free = []
+    for d, e in enumerate(spec):
+        if e is UNCONSTRAINED:
+            free.append(d)
+            continue
+        if e is None:
+            continue
+        axes = (e,) if isinstance(e, str) else tuple(e)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {e} is out of the mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    if current is not None:
+        taken = {n for e in spec if e is not None and e is not UNCONSTRAINED
+                 for n in ((e,) if isinstance(e, str) else e)}
+        for i, (n, c) in enumerate(zip(names, current)):
+            if n not in taken and isinstance(c, Shard) and c.dim in free:
+                out[i] = c
+    return out
+
+
+def placements_spec(mesh, placements, ndim: int) -> tuple:
+    """The spec of DTensor placements (no ``Partial``): each dim's mesh axes
+    in mesh order, ``None`` where it is whole; the inverse of
+    :func:`spec_placements`."""
+    from torch.distributed.tensor import Shard
+    names = mesh_shape(mesh).axis_names
+    axes: list = [[] for _ in range(ndim)]
+    for n, p in zip(names, placements):
+        if isinstance(p, Shard):
+            axes[p.dim].append(n)
+        elif not p.is_replicate():
+            raise ValueError(f"no spec for placement {p}")
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a) for a in axes)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a resolved spec (JAX's ``NamedSharding``)."""
+    mesh: object
+    spec: tuple
+
+    @property
+    def placements(self) -> list:
+        return spec_placements(self.mesh, self.spec)
+
+
+def sharding_of(t) -> NamedSharding:
+    """The :class:`NamedSharding` of a DTensor."""
+    return NamedSharding(t.device_mesh, placements_spec(t.device_mesh, t.placements, t.dim()))
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device of this rank in ``mesh``: the CPU, or its current card."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def local_ranges(shape: Sequence[int], mesh, placements, coord: Sequence[int]
+                 ) -> Tuple[Tuple[int, int], ...]:
+    """The ``[start, stop)`` of every dim that the rank at mesh coordinate
+    ``coord`` holds. A dim sharded over several mesh dims is split by them in
+    mesh order, the first outermost (DTensor's order and JAX's). Every shard
+    must be even: the rules shard only dims that their axes divide."""
+    from torch.distributed.tensor import Shard
+    sizes = mesh_shape(mesh).sizes
+    ranges = []
+    for d, n in enumerate(shape):
+        start, length = 0, n
+        for i, p in enumerate(placements):
+            if isinstance(p, Shard) and p.dim == d:
+                if length % sizes[i]:
+                    raise ValueError(f"dim {d} of {tuple(shape)} does not split {sizes[i]} ways")
+                length //= sizes[i]
+                start += coord[i] * length
+        ranges.append((start, start + length))
+    return tuple(ranges)
+
+
+def place(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """A DTensor of ``t`` (which every rank holds whole, on any device) under
+    ``sharding``, made without a collective: each rank keeps its own slice,
+    on its device of the mesh."""
+    from torch.distributed.tensor import DTensor
+    mesh, pl = sharding.mesh, sharding.placements
+    sl = tuple(slice(a, b) for a, b in local_ranges(t.shape, mesh, pl, mesh.get_coordinate()))
+    local = torch.as_tensor(t)[sl].to(mesh_device(mesh)).contiguous()
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=t.shape,
+                              stride=_stride(t.shape))
+
+
+def _stride(shape) -> tuple:
+    return torch.empty(shape, device="meta").stride()
+
+
+def make_resolver(mesh, rules: RuleTable):
+    """The closure for ``models.layers.sharding_context``: (shape, logical
+    names) -> the :class:`NamedSharding` that an activation is constrained
+    to (spec resolved for a constraint, so failed dims stay unconstrained)."""
+    def resolver(shape, names):
+        return NamedSharding(mesh, resolve_spec(mesh_shape(mesh), tuple(shape), tuple(names),
+                                                rules, for_constraint=True))
+    return resolver
+
+
+def _map_pair(fn, a, b):
+    if isinstance(a, dict):
+        return {k: _map_pair(fn, a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)) and not _is_axes(b):
+        return type(a)(_map_pair(fn, x, y) for x, y in zip(a, b))
+    return fn(a, b)
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(e is None or isinstance(e, str) for e in x)
+
+
+def tree_shardings(mesh, spec_tree, axes_tree, rules: RuleTable):
+    """(tree of tensors, ``meta`` ones included; tree of logical axes) ->
+    tree of :class:`NamedSharding`, by the rules."""
+    ms = mesh_shape(mesh)
+    return _map_pair(lambda s, ax: NamedSharding(mesh, resolve_spec(ms, tuple(s.shape),
+                                                                    tuple(ax), rules)),
+                     spec_tree, axes_tree)
+
+
+def with_shardings(spec_tree, shardings_tree):
+    """``meta`` DTensors of the spec tree's shapes and dtypes under the
+    shardings (the dry run's inputs): each local tensor is the rank's shard,
+    on ``meta``; nothing is allocated and no collective runs."""
+    from torch.distributed.tensor import DTensor
+
+    def one(s, sh):
+        pl = sh.placements
+        loc = local_ranges(s.shape, sh.mesh, pl, sh.mesh.get_coordinate())
+        local = torch.empty([b - a for a, b in loc], dtype=s.dtype, device="meta")
+        return DTensor.from_local(local, sh.mesh, pl, run_check=False, shape=s.shape,
+                                  stride=_stride(s.shape))
+    return _map_pair(one, spec_tree, shardings_tree)

@@ -14,6 +14,10 @@ Attention goes through ``kernels.ops``, which picks by device: kernels B1
 (with its logsumexp when training), B1b (the backward) and B2 on the card,
 their plain versions on the CPU (for training, the JAX package's blocked
 ``_attend_fwd_impl`` / ``_attend_bwd_impl`` over ``block``-row pairs).
+On DTensors (a model on a device mesh) q and k are constrained with
+``shard_act`` where the JAX function constrains them, and
+``attend_blocked``'s Function runs on each rank's local shards
+(``ops.run_local``), each rank with the kv heads its q heads read.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
-from repro_torch.models.layers import head_rms_norm, rope
+from repro_torch.models.layers import head_rms_norm, rope, shard_act
 
 __all__ = ["NEG_INF", "attend_blocked", "attend_plain", "attend_decode", "attn_forward",
            "attn_decode"]
@@ -62,6 +66,12 @@ def attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal:
     block = min(block, q.shape[1])
     if q.shape[1] % block:
         raise ValueError(f"S={q.shape[1]} is not a multiple of block={block}")
+    if ops.is_meshed(q, k, v):
+        # the Function runs on each rank's local shards (ops.run_local)
+        mesh, qpl, kvpl, hdims = ops.attention_plan(q, k, head_dim=2, kv_dim=2)
+        fn = ops.local_heads(lambda q, k, v: _AttendBlocked.apply(q, k, v, causal, window, block),
+                             mesh, hdims, q.shape[2], k.shape[2], (1, 2))
+        return ops.run_local(fn, mesh, [q, k, v], [qpl, kvpl, kvpl], qpl)
     return _AttendBlocked.apply(q, k, v, causal, window, block)
 
 
@@ -104,6 +114,8 @@ def attn_forward(x: torch.Tensor, p: dict, cfg, layer_local: bool,
     if cfg.causal:  # encoders use absolute positions added at the input
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
+    q = shard_act(q, ("act_batch", "act_seq", "act_heads", None))
+    k = shard_act(k, ("act_batch", "act_seq", "act_kv_heads", None))
     window = cfg.sliding_window if layer_local else 0
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         blk = min(block, S)
@@ -111,6 +123,7 @@ def attn_forward(x: torch.Tensor, p: dict, cfg, layer_local: bool,
                              block=blk if S % blk == 0 else S)
     else:
         out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
+    out = shard_act(out, ("act_batch", "act_seq", "act_heads", None))
     y = out.reshape(B, S, H * hd) @ p["wo"]
     if layer_local and cfg.sliding_window and S > cfg.sliding_window:
         # last W tokens, placed at their ring slots (slot = pos % W)
@@ -144,7 +157,9 @@ def attn_decode(x: torch.Tensor, p: dict, cfg, layer_local: bool, cache: dict,
     slot = positions % W if ring else positions
     _update_cache(cache["k"], k, slot)
     _update_cache(cache["v"], v, slot)
-    out = attend_decode(q, cache["k"], cache["v"], positions, ring=ring)
+    k_cache = shard_act(cache["k"], ("act_batch", "act_kv_seq", "act_kv_heads", None))
+    v_cache = shard_act(cache["v"], ("act_batch", "act_kv_seq", "act_kv_heads", None))
+    out = attend_decode(q, k_cache, v_cache, positions, ring=ring)
     y = out.reshape(B, H * hd) @ p["wo"]
     return y, cache
 

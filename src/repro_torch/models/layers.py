@@ -12,13 +12,21 @@ the logical axis names of every dimension.
 
 The primitive layers are plain functions on tensors and keep the JAX
 package's rounding order, so the two agree in bf16 as well as in f32.
-There is no activation-sharding hook: the port runs on one card.
+
+Activation sharding: the models call :func:`shard_act` with *logical* dim
+names where the JAX models do; under :func:`sharding_context` a DTensor is
+redistributed to the placements the resolver gives
+(``distributed.sharding.make_resolver``), the counterpart of
+``with_sharding_constraint``. Outside a context, or on a plain tensor, it is
+the identity.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +101,41 @@ def init_param(spec: ParamSpec, gen: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
+# Activation sharding context
+# ---------------------------------------------------------------------------
+
+_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def sharding_context(resolver: Callable):
+    """resolver(shape, logical names) -> a ``NamedSharding`` or None."""
+    prev = getattr(_CTX, "resolver", None)
+    _CTX.resolver = resolver
+    try:
+        yield
+    finally:
+        _CTX.resolver = prev
+
+
+def shard_act(x: torch.Tensor, names: Tuple[Optional[str], ...]) -> torch.Tensor:
+    """``x`` redistributed to the placements its logical names resolve to
+    (a dim left unconstrained keeps its placement; a ``Partial`` is reduced)."""
+    resolver = getattr(_CTX, "resolver", None)
+    if resolver is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    s = resolver(x.shape, names)
+    if s is None:
+        return x
+    from repro_torch.distributed.sharding import spec_placements
+    pl = spec_placements(x.device_mesh, s.spec, current=x.placements)
+    return x if tuple(pl) == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+# ---------------------------------------------------------------------------
 # Primitive layers (plain functions)
 # ---------------------------------------------------------------------------
 
@@ -138,4 +181,5 @@ def mlp(x: torch.Tensor, p: dict, gated: bool) -> torch.Tensor:
         h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     else:
         h = F.gelu(x @ p["wi"], approximate="tanh")
+    h = shard_act(h, ("act_batch", "act_seq", "act_mlp"))
     return h @ p["wo"]

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers import shard_act
 
 
 def softplus(v: torch.Tensor) -> torch.Tensor:
@@ -59,6 +60,7 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg) -> Tuple[torch.Tensor, dict]:
     m = cfg.mamba
     xi = x @ p["in_x"]                                  # [B, S, DI]
     z = x @ p["in_z"]
+    xi = shard_act(xi, ("act_batch", "act_seq", "act_mlp"))
     xi, conv_carry = _causal_conv(xi, p["conv_w"])
     xi = F.silu(xi + p["conv_b"])
     dt, Bc, Cc = _dt_b_c(xi, p, m)

@@ -44,10 +44,17 @@ the ``[B, E, C, D]`` buffers of the einsum form, which the sorted layout
 never builds, and it is 1 at every serving shape (``B*E*C*D*2`` is 0.79 MB
 at S32 for ``moonshot_v1_16b``). :func:`moe_aux_loss` is the load-balancing
 loss of training.
+
+On a device mesh (DTensor inputs) :func:`_moe_meshed` runs the layer on each
+rank's local shards: with the experts split over ``model`` (expert
+parallelism), each rank keeps the assignments to its own experts
+(``build_layout(..., experts=)``), and the output is a partial sum over
+``model``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -89,7 +96,7 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg) -> Tuple[torch.Tensor, tor
 
 
 def build_layout(eidx: torch.Tensor, gate: torch.Tensor, C: int, block_t: int,
-                 num_experts: int) -> Layout:
+                 num_experts: int, experts: Optional[Tuple[int, int]] = None) -> Layout:
     """The expert-sorted layout for B4 from the router's choices.
 
     Kept are the assignments of rank below ``C`` in their expert within their
@@ -99,11 +106,17 @@ def build_layout(eidx: torch.Tensor, gate: torch.Tensor, C: int, block_t: int,
     Blocks past the last used one take that block's expert and hold zero
     rows, so every id lies in ``[0, E)``; ``used_blocks`` counts the used
     ones (``sum_e ceil(kept_e / block_t)``), on the device, so that B4b can
-    skip the rest without a host round trip."""
+    skip the rest without a host round trip.
+
+    ``experts = (lo, hi)`` keeps only the assignments to experts ``lo`` to
+    ``hi - 1`` (one rank's experts under expert parallelism), their ids
+    taken from ``lo``; ranks are still counted over all experts."""
     B, S, k = eidx.shape
     E, Sk = num_experts, S * k
+    lo, hi = experts or (0, E)
+    El = hi - lo
     N = B * Sk
-    nt = -(-N // block_t) + min(E, N)
+    nt = -(-N // block_t) + min(El, N)
     T_pad = nt * block_t
     dev = eidx.device
     ar_e = torch.arange(E + 1, device=dev)
@@ -114,16 +127,20 @@ def build_layout(eidx: torch.Tensor, gate: torch.Tensor, C: int, block_t: int,
     pos = torch.arange(Sk, device=dev).expand(B, Sk) - torch.gather(starts, 1, se)
     rank = torch.empty_like(pos).scatter_(1, order, pos).reshape(N)
     kept = rank < C
+    fe = flat_e.reshape(N)
+    if experts is not None:
+        kept = kept & (fe >= lo) & (fe < hi)
+        ar_e = torch.arange(El + 1, device=dev)
     # group the kept assignments of all rows by expert; the dropped sort last
-    key = torch.where(kept, flat_e.reshape(N), E)
+    key = torch.where(kept, fe - lo, El)
     skey, order = torch.sort(key, stable=True)
-    gstart = torch.searchsorted(skey, ar_e)                  # [E+1] first index per expert
+    gstart = torch.searchsorted(skey, ar_e)                  # [El+1] first index per expert
     counts = gstart[1:] - gstart[:-1]
     nblk = -(-counts // block_t)
     blk_end = torch.cumsum(nblk, 0)
     row_start = (blk_end - nblk) * block_t
-    e_of = skey.clamp_max(E - 1)
-    srow = torch.where(skey < E, row_start[e_of] + torch.arange(N, device=dev) - gstart[e_of],
+    e_of = skey.clamp_max(El - 1)
+    srow = torch.where(skey < El, row_start[e_of] + torch.arange(N, device=dev) - gstart[e_of],
                        T_pad)
     token_rows = torch.empty_like(srow).scatter_(0, order, srow)
     # per row: its source token and gate (the extra last row takes the dropped)
@@ -131,9 +148,9 @@ def build_layout(eidx: torch.Tensor, gate: torch.Tensor, C: int, block_t: int,
         0, token_rows, torch.arange(N, device=dev) // k)[:T_pad]
     row_gate = torch.zeros(T_pad + 1, dtype=torch.float32, device=dev).scatter_(
         0, token_rows, gate.reshape(N).float())[:T_pad]
-    last = torch.where(counts > 0, ar_e[:E], 0).max()
+    last = torch.where(counts > 0, ar_e[:El], 0).max()
     bmap = torch.searchsorted(blk_end, torch.arange(nt, device=dev), right=True)
-    bmap = torch.where(bmap < E, bmap, last).to(torch.int32)
+    bmap = torch.where(bmap < El, bmap, last).to(torch.int32)
     return Layout(bmap, row_token, row_gate, token_rows.reshape(B, S, k), block_t,
                   blk_end[-1:].to(torch.int32))
 
@@ -184,9 +201,14 @@ class _Combine(torch.autograd.Function):
         return _gather_rows(g, ctx.saved_tensors[0]), None, None
 
 
-def moe_forward(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
+def moe_forward(x: torch.Tensor, p: dict, cfg,
+                experts: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """x [B, S, D] (or [B, D] for decode) -> the same shape. ``p`` holds
-    ``router`` [D, E], ``wg``/``wi`` [E, D, F] and ``wo`` [E, F, D]."""
+    ``router`` [D, E], ``wg``/``wi`` [E, D, F] and ``wo`` [E, F, D] (with
+    ``experts = (lo, hi)``, only experts lo to hi - 1: the output is then
+    their part of the sum). On DTensors, :func:`_moe_meshed`."""
+    if ops.is_meshed(x, *p.values()):
+        return _moe_meshed(x, p, cfg)
     e = cfg.moe
     squeeze = x.dim() == 2
     if squeeze:
@@ -194,7 +216,7 @@ def moe_forward(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     B, S, D = x.shape
     C = capacity(S, e.top_k, e.num_experts, e.capacity_factor)
     eidx, gate = route(x, p["router"], cfg)
-    lay = build_layout(eidx, gate, C, block_rows(B, C), e.num_experts)
+    lay = build_layout(eidx, gate, C, block_rows(B, C), e.num_experts, experts)
     # each token's rows in ascending expert order (T_pad where dropped)
     rows = torch.gather(lay.token_rows, -1, torch.argsort(eidx, dim=-1))
     xin = _Dispatch.apply(x.reshape(B * S, D), lay.row_token, rows.reshape(B * S, -1))
@@ -205,10 +227,51 @@ def moe_forward(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     return y[:, 0] if squeeze else y
 
 
+def _moe_meshed(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
+    """The MoE layer on a device mesh, each rank on its local shards.
+
+    The tokens of a batch shard are whole on every other mesh dim (the
+    reference's ``xin`` ``("act_batch", "act_expert", None, None)``); the
+    router is whole everywhere. Where the experts are split over a mesh dim
+    (``w_expert``: expert parallelism), each rank routes its tokens, keeps
+    the assignments to its own experts and runs B4 over them only; where
+    the expert FFN's width is split instead (``w_moe_mlp``), each runs its
+    slice of every expert. Either way the output is a partial sum over that
+    mesh dim, which the next activation constraint reduces."""
+    mesh = ops.mesh_of(x, *p.values())
+    bd = ops.shard_dims(x, 0)
+    ed = [i for i in ops.shard_dims(p["wg"], 0) if i not in bd]
+    fd = [i for i in ops.shard_dims(p["wg"], 2) if i not in bd + ed]
+    xpl, rpl = ops.placed(mesh, {0: bd}), ops.placed(mesh, {})
+    wpl, wopl = ops.placed(mesh, {0: ed, 2: fd}), ops.placed(mesh, {0: ed, 1: fd})
+    lo_hi = ops.split_range(mesh, ed, cfg.moe.num_experts) if ed else None
+
+    def local(x, router, wg, wi, wo):
+        return moe_forward(x, {"router": router, "wg": wg, "wi": wi, "wo": wo}, cfg, lo_hi)
+    return ops.run_local(local, mesh, [x, p["router"], p["wg"], p["wi"], p["wo"]],
+                         [xpl, rpl, wpl, wpl, wopl], ops.with_partial(xpl, ed + fd))
+
+
 def moe_aux_loss(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     """Load-balancing auxiliary loss (Switch): E * sum(f_e * P_e), f_e the share
     of tokens whose top-1 expert is e, P_e the mean router probability."""
     E = cfg.moe.num_experts
-    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"].float(), dim=-1)
+    f, P = _balance(x, p["router"], E)
+    return E * (f * P).sum()
+
+
+def _balance(x: torch.Tensor, router: torch.Tensor, E: int, shards: int = 1):
+    """(f, P) of :func:`moe_aux_loss` over x's tokens, each divided by
+    ``shards``. On DTensors each batch shard's means are a partial sum of the
+    whole batch's (the shards hold equal numbers of tokens)."""
+    if ops.is_meshed(x, router):
+        mesh = ops.mesh_of(x, router)
+        bd = ops.shard_dims(x, 0)
+        part = ops.with_partial(ops.placed(mesh, {}), bd)
+        n = math.prod(mesh.size(i) for i in bd)
+        return ops.run_local(lambda x, r: _balance(x, r, E, n), mesh, [x, router],
+                             [ops.placed(mesh, {0: bd}), ops.placed(mesh, {})], (part, part))
+    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ router.float(), dim=-1)
     f = torch.nn.functional.one_hot(probs.argmax(-1), E).float().mean(0)
-    return E * (f * probs.mean(0)).sum()
+    P = probs.mean(0)
+    return (f, P) if shards == 1 else (f / shards, P / shards)

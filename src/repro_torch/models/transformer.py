@@ -27,7 +27,9 @@ Modes:
   one row per layer instead of copying the cache each step)
 
 Attention and Mamba slots, each with a dense MLP or an MoE layer after it,
-and both frontends are ported.
+and both frontends are ported. Activations are constrained with
+``layers.shard_act`` where the JAX model constrains them, so the same code
+trains on DTensor parameters of a device mesh.
 
 The dry run's model surface needs no model: :func:`param_specs`,
 :func:`abstract_params` (tensors on the ``meta`` device), :func:`param_axes`
@@ -59,7 +61,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamSpec, build_abstract, build_axes, init_param, mlp,
-                                       rms_norm, sinusoidal_pos)
+                                       rms_norm, shard_act, sinusoidal_pos)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 AUX_LOSS_COEF = 0.01
@@ -334,7 +336,10 @@ class LM(nn.Module):
         return P["unembed"] if "unembed" in P else P["embed"]
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self._head().T
+        out = x @ self._head().T
+        names = ("act_batch", "act_seq", "act_vocab") if out.dim() == 3 \
+            else ("act_batch", "act_vocab")
+        return shard_act(out, names)
 
     # ------------------------------------------------------------------
     # Blocks
@@ -355,12 +360,12 @@ class LM(nn.Module):
                                              theta=sk.theta, block=self.attn_block)
         else:
             h, cache = mamba_mod.mamba_forward(h, p, c)
-        x = x + h
+        x = shard_act(x + h, ("act_batch", "act_seq", "act_embed"))
         if sk.is_moe:
             x = x + self._moe(rms_norm(x, p["norm2"], c.norm_eps), p)
         elif c.d_ff > 0:
             x = x + self._mlp(rms_norm(x, p["norm2"], c.norm_eps), p)
-        return x, cache
+        return shard_act(x, ("act_batch", "act_seq", "act_embed")), cache
 
     def _block_decode(self, x, p, sk: SlotKind, cache, positions):
         c = self.cfg
@@ -397,7 +402,7 @@ class LM(nn.Module):
         in the backward, the attention kernel B1 included."""
         use_remat = self.cfg.remat and not want_cache
         P = self.params() if params is None else params
-        x = self.embed_input(batch, P)
+        x = shard_act(self.embed_input(batch, P), ("act_batch", "act_seq", "act_embed"))
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
         per_period = []
@@ -463,7 +468,7 @@ class LM(nn.Module):
     def decode_step(self, cache, batch):
         """batch: {token: [B] int, pos: [B] int}. Returns (logits, cache); the
         cache is updated in place (every block writes its layer's slice)."""
-        x = self.embed[batch["token"].to(self.device)]
+        x = shard_act(self.embed[batch["token"].to(self.device)], ("act_batch", "act_embed"))
         positions = batch["pos"].to(self.device)
         for k in range(self.num_periods):
             for s, (slot, sk) in enumerate(zip(self.slots, self.slot_kinds)):
@@ -508,7 +513,8 @@ class LM(nn.Module):
 
 def _label_logprob(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """log_softmax(x @ head^T) at the labels; logits in x's type, then float32."""
-    lp = torch.log_softmax((x @ head.T).float(), dim=-1)
+    logits = shard_act(x @ head.T, ("act_batch", "act_seq", "act_vocab"))
+    lp = torch.log_softmax(logits.float(), dim=-1)
     return torch.gather(lp, -1, labels[..., None])[..., 0]
 
 

@@ -12,9 +12,14 @@ All are pure, as the reference's are: ``init(params) -> state`` and
 tensors (nested dicts too), with the reference's arithmetic: float32 math
 whatever the parameters' type, the bias corrections ``1 - b**step``, eps
 outside the square root. They are not ``torch.optim``'s, which keep other
-defaults (AdamW: b2 0.999, decay 1e-2) and update in place. The JAX
-package's ``state_axes`` (the logical sharding axes of the state) has no
-counterpart: the port runs on one card.
+defaults (AdamW: b2 0.999, decay 1e-2) and update in place.
+
+``state_axes(param_axes)`` gives the state's logical axes, a tree shaped as
+``init``'s, from the parameters' (a dict of axis tuples): the moments take
+their parameter's axes, Adafactor's row and column statistics ``a[:-1]``
+and ``a[:-2] + a[-1:]``, the step ``()``. On a device mesh the state is
+made by ``init`` and placed by them (``launch.train.place_train_state``);
+``update`` on DTensors gives DTensors.
 """
 from __future__ import annotations
 
@@ -25,10 +30,12 @@ import torch
 
 
 def _map(fn, *trees):
-    """``fn`` over the leaves of same-shaped trees of dicts; the first tree's
-    structure decides (a later tree may hold a dict at a leaf)."""
+    """``fn`` over the leaves of same-shaped trees of dicts and lists; the
+    first tree's structure decides (a later tree may hold a dict at a leaf)."""
     if isinstance(trees[0], dict):
         return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_map(fn, *(t[i] for t in trees)) for i in range(len(trees[0]))]
     return fn(*trees)
 
 
@@ -53,8 +60,12 @@ class AdamW:
 
     def init(self, params):
         dt = getattr(torch, self.state_dtype)
-        z = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+        z = lambda p: torch.zeros_like(p, dtype=dt)
         return {"step": _step0(params), "m": _map(z, params), "v": _map(z, params)}
+
+    def state_axes(self, param_axes):
+        """Logical-axes tree matching init()'s structure (for sharding)."""
+        return {"step": (), "m": param_axes, "v": param_axes}
 
     def update(self, grads, state, params):
         step = state["step"] + 1
@@ -100,6 +111,14 @@ class Adafactor:
             return {"v": torch.zeros(p.shape, **f32)}
         return {"step": _step0(params), "stats": _map(z, params)}
 
+    def state_axes(self, param_axes):
+        def ax(a):
+            a = tuple(a)
+            if len(a) >= 2:
+                return {"r": a[:-1], "c": a[:-2] + a[-1:]}
+            return {"v": a}
+        return {"step": (), "stats": _map(ax, param_axes)}
+
     def update(self, grads, state, params):
         step = state["step"] + 1
         lr = self._lr(step)
@@ -136,8 +155,11 @@ class SGDM:
         return self.lr(step) if callable(self.lr) else self.lr
 
     def init(self, params):
-        z = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        z = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return {"step": _step0(params), "m": _map(z, params)}
+
+    def state_axes(self, param_axes):
+        return {"step": (), "m": param_axes}
 
     def update(self, grads, state, params):
         step = state["step"] + 1

@@ -1185,3 +1185,58 @@ def test_grouped_matmul_bwd_wrappers_reject_what_the_kernels_do_not_take(card):
         moe_gmm.grouped_matmul_dw(x, dy[:16], bmap, 8, 2)
     with pytest.raises(ValueError, match="used_blocks"):
         moe_gmm.grouped_matmul_dw(x, dy, bmap, 8, 2, bmap[:1].long())
+
+
+def test_a_one_rank_nccl_mesh_step_equals_the_plain_step(card):
+    """Reduced qwen3_32b in f32 on a one-rank NCCL group and a (1, 1) mesh:
+    the mesh path (DTensor parameters and state, shard_act, B1 and B1b
+    through local_map) gives the plain path's losses, gradient norms and
+    parameters after 3 steps."""
+    from dataclasses import replace
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.distributed.sharding import TRAIN_RULES, make_resolver
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_process_group, make_local_mesh
+    from repro_torch.models import LM
+    from repro_torch.models.layers import sharding_context
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import make_train_step
+
+    init_process_group()
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = make_local_mesh(model_axis=1)
+        cfg = replace(reduced(get_config("qwen3_32b")), dtype="float32")
+        lm = LM(cfg, device=card, seed=0, attn_block=16)
+        stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8,
+                                        seed=0))
+        out = {}
+        for path in ("plain", "mesh"):
+            opt = AdamW(lr=1e-3)
+            params = {n: p.detach() for n, p in lm.params().items()}
+            state, place, resolver = opt.init(params), None, None
+            if path == "mesh":
+                params, state, _ = train.place_train_state(lm, opt, params, state, mesh)
+                place = train.batch_placer(mesh, cfg, 4, 32)
+                resolver = make_resolver(mesh, TRAIN_RULES)
+            step = make_train_step(lm, opt, accum=2, place_batch=place)
+            n1, n1b = fa.flash_attention.launches, fb.flash_attention_bwd.launches
+            rec = []
+            with sharding_context(resolver):
+                for i in range(3):
+                    params, state, m = step(params, state, stream.batch(i))
+                    rec.append((float(m["loss"]), float(m["grad_norm"])))
+            assert fa.flash_attention.launches > n1 and fb.flash_attention_bwd.launches > n1b
+            out[path] = rec, {n: t.full_tensor() if hasattr(t, "full_tensor") else t
+                              for n, t in params.items()}
+        np.testing.assert_allclose(out["mesh"][0], out["plain"][0], rtol=0, atol=2e-3)
+        for n, p in out["plain"][1].items():
+            torch.testing.assert_close(out["mesh"][1][n], p, rtol=5e-4, atol=5e-5)
+    finally:
+        dist.destroy_process_group()

@@ -25,11 +25,17 @@ def _modules():
 
 
 def test_import_leaves_jax_repro_and_triton_out():
-    assert "repro_torch.serving.engine" in _modules()
+    """Importing every module of the port loads no JAX, nothing of the JAX
+    package and no Triton, and starts no process group (``launch.mesh``
+    included)."""
+    assert {"repro_torch.serving.engine", "repro_torch.launch.mesh"} <= set(_modules())
     code = ("import importlib, json, sys\n"
             f"for m in {_modules()!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton'))\n"
+            "import torch.distributed as dist\n"
+            "bad += ['a process group'] if dist.is_available() and dist.is_initialized() "
+            "else []\n"
             "print(json.dumps(bad))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
