@@ -104,18 +104,19 @@ imports nothing of JAX. Phases, each of which fails the run:
    (experts chosen, logits' spread, the common share of its input), on a
    microbatch of the stream and on one of uniform tokens;
 14. train on a device mesh: a one-rank NCCL group (no network) and a
-   ``(1, 1)`` ``("data", "model")`` mesh, the mesh path forced on although
-   one device shards nothing (DTensor parameters and optimizer state placed
-   by the sharding rules, ``shard_act``, every kernel through ``local_map``):
-   ``train_100m`` at full width and depth through ``launch/train.py
-   --force-mesh`` (10 steps of 8 x 1024 tokens, 2 microbatches, a sharded
-   checkpoint every 5 steps, then a run resumed from step 5 whose losses
-   equal the first run's bit for bit), and 3 f32 steps of phase 7's cuts
-   (``falcon_mamba_7b`` 2 layers, ``moonshot_v1_16b`` 1 layer); each against
-   the plain path from the same seed, losses and gradient norms bit-equal
-   (else within 2e-3, the gap printed); B1, B1b, B3, B3b, B4 and B4b each
-   launched on the mesh path; then a steady step of ``train_100m`` on both
-   paths (plain, mesh, mesh, plain), wall and device ms.
+   ``(1, 1)`` ``("data", "model")`` mesh, on which the launcher takes the
+   mesh path although one device shards nothing (DTensor parameters and
+   optimizer state placed by the sharding rules, ``shard_act``, every
+   kernel through ``local_map``): ``train_100m`` at full width and depth
+   through ``launch/train.py`` (10 steps of 8 x 1024 tokens, 2
+   microbatches, a sharded checkpoint every 5 steps, then a run resumed
+   from step 5 whose losses equal the first run's bit for bit), and 3 f32
+   steps of phase 7's cuts (``falcon_mamba_7b`` 2 layers,
+   ``moonshot_v1_16b`` 1 layer); each against the plain path from the same
+   seed, losses and gradient norms bit-equal (else within 2e-3, the gap
+   printed); B1, B1b, B3, B3b, B4 and B4b each launched on the mesh path;
+   then a steady step of ``train_100m`` on both paths (plain, mesh, mesh,
+   plain), wall and device ms.
 
 Phase 7 also holds, in f32 card vs CPU within 2e-3: ``gemma3_12b`` cut to
 one period (5 local layers, 1 global) at full width, a prompt of 1100
@@ -2258,6 +2259,7 @@ def phase_train_mesh():
     from repro_torch.launch import train
     from repro_torch.launch.mesh import init_process_group
 
+    plain = train.main(MESH_ARGS + ["--steps", "10"])     # before the group: plain tensors
     dev = init_process_group()
     check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
           f"process group {dist.get_backend()} of {dist.get_world_size()}")
@@ -2276,17 +2278,14 @@ def phase_train_mesh():
 
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "mesh")
-        meshed = counted(lambda: train.main(MESH_ARGS + ["--steps", "10", "--force-mesh",
-                                                         "--ckpt", ck]))
-        plain = train.main(MESH_ARGS + ["--steps", "10"])
+        meshed = counted(lambda: train.main(MESH_ARGS + ["--steps", "10", "--ckpt", ck]))
         _same_run("train_100m bf16, 10 steps of 8 x 1024 tokens", meshed, plain)
         check(sorted(os.listdir(ck)) == ["step_000000005", "step_000000010"],
               f"checkpoints {sorted(os.listdir(ck))}")
         with open(os.path.join(ck, "step_000000005", "MANIFEST.json")) as f:
             leaves = json.load(f)["leaves"]
         shutil.rmtree(os.path.join(ck, "step_000000010"))
-        resumed = counted(lambda: train.main(MESH_ARGS + ["--steps", "5", "--force-mesh",
-                                                          "--ckpt", ck]))
+        resumed = counted(lambda: train.main(MESH_ARGS + ["--steps", "5", "--ckpt", ck]))
         check(resumed["start"] == 5 and resumed["losses"] == meshed["losses"][5:],
               f"resumed at {resumed['start']}: {resumed['losses']} != {meshed['losses'][5:]}")
         print(f"[mesh] sharded checkpoint at step 5 ({len(leaves)} leaves, "
@@ -2325,14 +2324,11 @@ def _mesh_cut(arch, layers, S, counted, steps=3):
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, TokenStream
-    from repro_torch.distributed.sharding import TRAIN_RULES, make_resolver
-    from repro_torch.launch import train
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import setup_training
     from repro_torch.models import LM
-    from repro_torch.models.layers import sharding_context
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.schedule import warmup_cosine
-    from repro_torch.train.trainer import make_train_step
 
     cfg = replace(get_config(arch), dtype="float32", num_layers=layers)
     lm = LM(cfg, device="cuda", seed=11, attn_block=64)
@@ -2343,13 +2339,8 @@ def _mesh_cut(arch, layers, S, counted, steps=3):
     recs, last = {}, {}
     for path in ("mesh", "plain"):
         opt = make_optimizer("adamw", warmup_cosine(3e-3, 20, steps), cfg)
-        params = {n: p.detach() for n, p in lm.params().items()}
-        state, place, ctx = opt.init(params), None, sharding_context(None)
-        if path == "mesh":
-            params, state, _ = train.place_train_state(lm, opt, params, state, mesh)
-            place = train.batch_placer(mesh, cfg, 1, S)
-            ctx = sharding_context(make_resolver(mesh, TRAIN_RULES))
-        step = make_train_step(lm, opt, accum=2, place_batch=place)
+        params, state, step, ctx, _ = setup_training(
+            lm, opt, mesh if path == "mesh" else None, rows=1, seq=S, accum=2)
 
         def run(params=params, state=state):
             rec = {"losses": [], "grad_norms": []}
@@ -2380,14 +2371,11 @@ def _mesh_steady(warm=2, timed=5, profiled=3):
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, TokenStream
-    from repro_torch.distributed.sharding import TRAIN_RULES, make_resolver
-    from repro_torch.launch import train
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import setup_training
     from repro_torch.models import LM
-    from repro_torch.models.layers import sharding_context
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.schedule import warmup_cosine
-    from repro_torch.train.trainer import make_train_step
 
     cfg = get_config("train_100m")
     lm = LM(cfg, device="cuda", seed=0, attn_block=TRAIN_BLOCK)
@@ -2397,13 +2385,8 @@ def _mesh_steady(warm=2, timed=5, profiled=3):
     out = {"plain": [], "mesh": []}
     for path in ("plain", "mesh", "mesh", "plain"):
         opt = make_optimizer("adamw", warmup_cosine(3e-3, 20, 100), cfg)
-        params = {n: p.detach() for n, p in lm.params().items()}
-        state, place, ctx = opt.init(params), None, sharding_context(None)
-        if path == "mesh":
-            params, state, _ = train.place_train_state(lm, opt, params, state, mesh)
-            place = train.batch_placer(mesh, cfg, 4, 1024)
-            ctx = sharding_context(make_resolver(mesh, TRAIN_RULES))
-        step = make_train_step(lm, opt, accum=2, place_batch=place)
+        params, state, step, ctx, _ = setup_training(
+            lm, opt, mesh if path == "mesh" else None, rows=4, seq=1024, accum=2)
         with ctx:
             for b in batches[:warm]:
                 params, state, _ = step(params, state, b)

@@ -53,8 +53,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import local_ranges, place, sharding_of
-from repro_torch.kernels.ops import is_meshed
+from repro_torch.distributed.sharding import is_meshed, local_ranges, place, sharding_of
 
 COMMIT_TIMEOUT_S = 600.0
 

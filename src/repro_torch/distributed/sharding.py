@@ -32,6 +32,7 @@ own.
 from __future__ import annotations
 
 import math
+import sys
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -331,6 +332,46 @@ def local_ranges(shape: Sequence[int], mesh, placements, coord: Sequence[int]
                 start += coord[i] * length
         ranges.append((start, start + length))
     return tuple(ranges)
+
+
+def is_meshed(*ts) -> bool:
+    """Whether any of ``ts`` is a DTensor (without importing DTensor when
+    nothing has)."""
+    if "torch.distributed.tensor" not in sys.modules:
+        return False
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for t in ts)
+
+
+def mesh_of(*ts):
+    """The mesh of the first DTensor among ``ts``."""
+    from torch.distributed.tensor import DTensor
+    return next(t.device_mesh for t in ts if isinstance(t, DTensor))
+
+
+def shard_dims(t, dim: int):
+    """The mesh dims over which DTensor ``t`` shards tensor dim ``dim``."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return []
+    return [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == dim]
+
+
+def placed(mesh, shard: dict):
+    """Placements over ``mesh`` that shard tensor dim d over the mesh dims
+    ``shard[d]`` and replicate the rest."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate()] * mesh.ndim
+    for d, dims in shard.items():
+        for i in dims:
+            pl[i] = Shard(d)
+    return tuple(pl)
+
+
+def split_range(mesh, dims: Sequence[int], n: int) -> Tuple[int, int]:
+    """This rank's ``[start, stop)`` of ``n`` items split over the mesh dims
+    ``dims`` in mesh order, the first outermost."""
+    return local_ranges((n,), mesh, placed(mesh, {0: dims}), mesh.get_coordinate())[0]
 
 
 def place(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:

@@ -26,13 +26,12 @@ only. Where a rank's q heads map to kv heads that are not split with them
 from __future__ import annotations
 
 import math
-import sys
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import local_ranges
+from repro_torch.distributed.sharding import is_meshed, mesh_of, placed, shard_dims, split_range
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
@@ -44,45 +43,6 @@ from repro_torch.kernels import moe_gmm as _gmm
 # ---------------------------------------------------------------------------
 # DTensor inputs: the kernels on local shards
 # ---------------------------------------------------------------------------
-
-def is_meshed(*ts) -> bool:
-    """Whether any of ``ts`` is a DTensor (without importing DTensor when
-    nothing has)."""
-    if "torch.distributed.tensor" not in sys.modules:
-        return False
-    from torch.distributed.tensor import DTensor
-    return any(isinstance(t, DTensor) for t in ts)
-
-
-def mesh_of(*ts):
-    from torch.distributed.tensor import DTensor
-    return next(t.device_mesh for t in ts if isinstance(t, DTensor))
-
-
-def shard_dims(t, dim: int):
-    """The mesh dims over which DTensor ``t`` shards tensor dim ``dim``."""
-    from torch.distributed.tensor import DTensor, Shard
-    if not isinstance(t, DTensor):
-        return []
-    return [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == dim]
-
-
-def placed(mesh, shard: dict):
-    """Placements over ``mesh`` that shard tensor dim d over the mesh dims
-    ``shard[d]`` and replicate the rest."""
-    from torch.distributed.tensor import Replicate, Shard
-    pl = [Replicate()] * mesh.ndim
-    for d, dims in shard.items():
-        for i in dims:
-            pl[i] = Shard(d)
-    return tuple(pl)
-
-
-def split_range(mesh, dims: Sequence[int], n: int) -> Tuple[int, int]:
-    """This rank's ``[start, stop)`` of ``n`` items split over the mesh dims
-    ``dims`` in mesh order, the first outermost."""
-    return local_ranges((n,), mesh, placed(mesh, {0: dims}), mesh.get_coordinate())[0]
-
 
 def run_local(fn, mesh, args, in_pl, out_pl):
     """``fn`` on the local shards of ``args`` (placements ``in_pl``, None

@@ -22,7 +22,8 @@ microbatch is sharded over ``data``, the step runs under the rules'
 activation constraints, and checkpoints are written shard by shard and
 restored onto the run's own mesh, so a run resumed on another
 ``--model-axis`` re-meshes. One rank trains on plain tensors, as a mesh of
-one device shards nothing; ``--force-mesh`` takes the mesh path there too.
+one device shards nothing, unless the caller has started a process group:
+then it trains on a ``(1, 1)`` mesh.
 
 A checkpoint is named by the number of steps taken (``step_000000010``
 holds the state after 10 updates) and a resumed run takes the next batch.
@@ -36,6 +37,7 @@ import argparse
 import contextlib
 import os
 import time
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -72,8 +74,6 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
-    ap.add_argument("--force-mesh", action="store_true",
-                    help="train through the mesh path on one rank too")
     args = ap.parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if args.model_axis < 1 or world % args.model_axis:
@@ -82,20 +82,14 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    meshed = world > 1 or args.force_mesh
+    meshed = world > 1 or torch.distributed.is_initialized()
     device = init_process_group(args.device) if meshed else args.device
     mesh = make_local_mesh(model_axis=args.model_axis, device=device) if meshed else None
     rank0 = not meshed or torch.distributed.get_rank() == 0
     model = build_model(cfg, device=device, seed=0, attn_block=max(64, args.seq // 4))
-    params = {n: p.detach() for n, p in model.params().items()}
     opt = make_optimizer(args.optimizer, warmup_cosine(args.lr, 20, args.steps), cfg)
-    opt_state = opt.init(params)
-    shardings, place_batch, context = None, None, contextlib.nullcontext()
-    if meshed:
-        params, opt_state, shardings = place_train_state(model, opt, params, opt_state, mesh)
-        place_batch = batch_placer(mesh, cfg, args.batch // args.accum, args.seq)
-        context = sharding_context(make_resolver(mesh, TRAIN_RULES))
-    step_fn = make_train_step(model, opt, accum=args.accum, place_batch=place_batch)
+    params, opt_state, step_fn, context, shardings = setup_training(
+        model, opt, mesh, rows=args.batch // args.accum, seq=args.seq, accum=args.accum)
 
     mgr = CheckpointManager(args.ckpt, keep=3) if args.ckpt else None
     start = 0
@@ -157,23 +151,41 @@ def place_tree(tree, shardings):
     return place(tree, shardings)
 
 
-def place_train_state(model, opt, params, opt_state, mesh):
-    """(params, opt_state, their shardings ``{"p": ..., "o": ...}``) on
-    ``mesh``: the parameters by ``TRAIN_RULES`` and their logical axes, the
-    optimizer state by its ``state_axes``."""
+class Training(NamedTuple):
+    """What :func:`setup_training` gives: the state, the step and how to run
+    it. ``shardings`` (``{"p": ..., "o": ...}``, None on plain tensors)
+    restores a checkpoint onto the mesh."""
+    params: dict
+    opt_state: dict
+    step: Callable
+    context: contextlib.AbstractContextManager
+    shardings: Optional[dict]
+
+
+def setup_training(model, opt, mesh=None, *, rows: int, seq: int, accum: int,
+                   grad_transform=None) -> Training:
+    """``model``'s parameters, ``opt``'s state for them and the train step
+    over ``accum`` microbatches of ``rows`` x ``seq`` tokens, on plain
+    tensors or, with ``mesh``, on it: the parameters placed by
+    ``TRAIN_RULES`` and their logical axes, the optimizer state by its
+    ``state_axes``, each microbatch's rows over ``data`` where they divide,
+    and the step run under the rules' activation constraints (the
+    ``context``)."""
+    params = {n: p.detach() for n, p in model.params().items()}
+    opt_state = opt.init(params)
+    if mesh is None:
+        step = make_train_step(model, opt, accum=accum, grad_transform=grad_transform)
+        return Training(params, opt_state, step, contextlib.nullcontext(), None)
     axes = flat_axes(model.param_axes())
     shardings = {"p": tree_shardings(mesh, params, axes, TRAIN_RULES),
                  "o": tree_shardings(mesh, opt_state, opt.state_axes(axes), TRAIN_RULES)}
-    return place_tree(params, shardings["p"]), place_tree(opt_state, shardings["o"]), shardings
-
-
-def batch_placer(mesh, cfg, rows: int, seq: int):
-    """Puts a microbatch of ``rows`` sequences (a dict of whole tensors or
-    arrays) onto the mesh by ``TRAIN_RULES``' batch axes: rows over
-    ``data`` where they divide."""
-    specs, axes = input_specs(cfg, ShapeConfig("microbatch", seq, rows, "train"))
-    sh = tree_shardings(mesh, specs, axes, TRAIN_RULES)
-    return lambda mb: {k: place(torch.as_tensor(v), sh[k]) for k, v in mb.items()}
+    specs, batch_axes = input_specs(model.cfg, ShapeConfig("microbatch", seq, rows, "train"))
+    batch_sh = tree_shardings(mesh, specs, batch_axes, TRAIN_RULES)
+    step = make_train_step(model, opt, accum=accum, grad_transform=grad_transform,
+                           place_batch=lambda mb: {k: place(torch.as_tensor(v), batch_sh[k])
+                                                   for k, v in mb.items()})
+    return Training(place_tree(params, shardings["p"]), place_tree(opt_state, shardings["o"]),
+                    step, sharding_context(make_resolver(mesh, TRAIN_RULES)), shardings)
 
 
 if __name__ == "__main__":

@@ -21,10 +21,12 @@ On DTensors (a model on a device mesh) q and k are constrained with
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import is_meshed, shard_dims
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
 from repro_torch.models.layers import head_rms_norm, rope, shard_act
@@ -66,7 +68,7 @@ def attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal:
     block = min(block, q.shape[1])
     if q.shape[1] % block:
         raise ValueError(f"S={q.shape[1]} is not a multiple of block={block}")
-    if ops.is_meshed(q, k, v):
+    if is_meshed(q, k, v):
         # the Function runs on each rank's local shards (ops.run_local)
         mesh, qpl, kvpl, hdims = ops.attention_plan(q, k, head_dim=2, kv_dim=2)
         fn = ops.local_heads(lambda q, k, v: _AttendBlocked.apply(q, k, v, causal, window, block),
@@ -92,6 +94,20 @@ def attend_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return ops.decode_attention(q, k_cache, v_cache, positions, ring=ring)
 
 
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """``t`` [..., n * hd] as [..., n, hd]. A DTensor whose last dim is split
+    in a way that does not keep the n heads whole (6 heads over 4 ranks) is
+    gathered on that dim first: the kernels take whole heads, as the JAX
+    constraint's ``None`` on hd asks."""
+    if is_meshed(t):
+        dims = shard_dims(t, t.dim() - 1)
+        if n % math.prod(t.device_mesh.size(i) for i in dims):
+            from torch.distributed.tensor import Replicate
+            t = t.redistribute(t.device_mesh, [Replicate() if i in dims else pl
+                                               for i, pl in enumerate(t.placements)])
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
 def attn_forward(x: torch.Tensor, p: dict, cfg, layer_local: bool,
                  positions: torch.Tensor, *, theta: float,
                  block: int = 512) -> Tuple[torch.Tensor, dict]:
@@ -105,9 +121,9 @@ def attn_forward(x: torch.Tensor, p: dict, cfg, layer_local: bool,
     """
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    q = _split_heads(x @ p["wq"], H, hd)
+    k = _split_heads(x @ p["wk"], KV, hd)
+    v = _split_heads(x @ p["wv"], KV, hd)
     if cfg.qk_norm:
         q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -144,9 +160,9 @@ def attn_decode(x: torch.Tensor, p: dict, cfg, layer_local: bool, cache: dict,
     the returned entry holds the same tensors."""
     B, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, H, hd)
-    k = (x @ p["wk"]).reshape(B, KV, hd)
-    v = (x @ p["wv"]).reshape(B, KV, hd)
+    q = _split_heads(x @ p["wq"], H, hd)
+    k = _split_heads(x @ p["wk"], KV, hd)
+    v = _split_heads(x @ p["wv"], KV, hd)
     if cfg.qk_norm:
         q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)

@@ -58,6 +58,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import is_meshed, mesh_of, placed, shard_dims, split_range
 from repro_torch.kernels import ops
 
 
@@ -207,7 +208,7 @@ def moe_forward(x: torch.Tensor, p: dict, cfg,
     ``router`` [D, E], ``wg``/``wi`` [E, D, F] and ``wo`` [E, F, D] (with
     ``experts = (lo, hi)``, only experts lo to hi - 1: the output is then
     their part of the sum). On DTensors, :func:`_moe_meshed`."""
-    if ops.is_meshed(x, *p.values()):
+    if is_meshed(x, *p.values()):
         return _moe_meshed(x, p, cfg)
     e = cfg.moe
     squeeze = x.dim() == 2
@@ -238,13 +239,13 @@ def _moe_meshed(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     the expert FFN's width is split instead (``w_moe_mlp``), each runs its
     slice of every expert. Either way the output is a partial sum over that
     mesh dim, which the next activation constraint reduces."""
-    mesh = ops.mesh_of(x, *p.values())
-    bd = ops.shard_dims(x, 0)
-    ed = [i for i in ops.shard_dims(p["wg"], 0) if i not in bd]
-    fd = [i for i in ops.shard_dims(p["wg"], 2) if i not in bd + ed]
-    xpl, rpl = ops.placed(mesh, {0: bd}), ops.placed(mesh, {})
-    wpl, wopl = ops.placed(mesh, {0: ed, 2: fd}), ops.placed(mesh, {0: ed, 1: fd})
-    lo_hi = ops.split_range(mesh, ed, cfg.moe.num_experts) if ed else None
+    mesh = mesh_of(x, *p.values())
+    bd = shard_dims(x, 0)
+    ed = [i for i in shard_dims(p["wg"], 0) if i not in bd]
+    fd = [i for i in shard_dims(p["wg"], 2) if i not in bd + ed]
+    xpl, rpl = placed(mesh, {0: bd}), placed(mesh, {})
+    wpl, wopl = placed(mesh, {0: ed, 2: fd}), placed(mesh, {0: ed, 1: fd})
+    lo_hi = split_range(mesh, ed, cfg.moe.num_experts) if ed else None
 
     def local(x, router, wg, wi, wo):
         return moe_forward(x, {"router": router, "wg": wg, "wi": wi, "wo": wo}, cfg, lo_hi)
@@ -264,13 +265,13 @@ def _balance(x: torch.Tensor, router: torch.Tensor, E: int, shards: int = 1):
     """(f, P) of :func:`moe_aux_loss` over x's tokens, each divided by
     ``shards``. On DTensors each batch shard's means are a partial sum of the
     whole batch's (the shards hold equal numbers of tokens)."""
-    if ops.is_meshed(x, router):
-        mesh = ops.mesh_of(x, router)
-        bd = ops.shard_dims(x, 0)
-        part = ops.with_partial(ops.placed(mesh, {}), bd)
+    if is_meshed(x, router):
+        mesh = mesh_of(x, router)
+        bd = shard_dims(x, 0)
+        part = ops.with_partial(placed(mesh, {}), bd)
         n = math.prod(mesh.size(i) for i in bd)
         return ops.run_local(lambda x, r: _balance(x, r, E, n), mesh, [x, router],
-                             [ops.placed(mesh, {0: bd}), ops.placed(mesh, {})], (part, part))
+                             [placed(mesh, {0: bd}), placed(mesh, {})], (part, part))
     probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ router.float(), dim=-1)
     f = torch.nn.functional.one_hot(probs.argmax(-1), E).float().mean(0)
     P = probs.mean(0)

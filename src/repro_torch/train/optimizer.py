@@ -18,7 +18,7 @@ defaults (AdamW: b2 0.999, decay 1e-2) and update in place.
 ``init``'s, from the parameters' (a dict of axis tuples): the moments take
 their parameter's axes, Adafactor's row and column statistics ``a[:-1]``
 and ``a[:-2] + a[-1:]``, the step ``()``. On a device mesh the state is
-made by ``init`` and placed by them (``launch.train.place_train_state``);
+made by ``init`` and placed by them (``launch.train.setup_training``);
 ``update`` on DTensors gives DTensors.
 """
 from __future__ import annotations

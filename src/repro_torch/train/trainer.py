@@ -28,7 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.kernels.ops import is_meshed
+from repro_torch.distributed.sharding import is_meshed
 from repro_torch.models.transformer import LM, torch_dtype
 
 

@@ -1,4 +1,4 @@
-"""Subprocesses of the multi-rank tests (tests/test_torch_mesh*.py): the
+"""Subprocesses of the multi-rank tests (tests/test_torch_mesh.py): the
 port's ranks under ``torch.distributed.run`` and JAX with virtual CPU
 devices, each writing its output to a log file, each waited for with a
 timeout of its own, so that a hung collective fails one test."""
@@ -10,7 +10,7 @@ import textwrap
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 WORKER = os.path.join(os.path.dirname(__file__), "_torch_mesh_worker.py")
-TIMEOUT = 420
+TIMEOUT = 600
 
 
 def _env(**extra):
@@ -30,11 +30,11 @@ def _popen(cmd, log: str, env) -> subprocess.Popen:
     return p
 
 
-def torch_ranks(job: str, out: str, n: int = 8) -> subprocess.Popen:
-    """The worker's ``job`` on ``n`` gloo ranks (a free port: --standalone)."""
+def torch_ranks(out: str, n: int = 8) -> subprocess.Popen:
+    """The worker on ``n`` gloo ranks (a free port: --standalone)."""
     return _popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                   f"--nproc-per-node={n}", WORKER, job, out],
-                  os.path.join(out, f"{job}.log"), _env(OMP_NUM_THREADS="1"))
+                   f"--nproc-per-node={n}", WORKER, out],
+                  os.path.join(out, "ranks.log"), _env(OMP_NUM_THREADS="1"))
 
 
 def python_sub(code: str, log: str, devices: int = 0, **env) -> subprocess.Popen:

@@ -1198,15 +1198,12 @@ def test_a_one_rank_nccl_mesh_step_equals_the_plain_step(card):
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.data.pipeline import DataConfig, TokenStream
-    from repro_torch.distributed.sharding import TRAIN_RULES, make_resolver
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
-    from repro_torch.launch import train
     from repro_torch.launch.mesh import init_process_group, make_local_mesh
+    from repro_torch.launch.train import setup_training
     from repro_torch.models import LM
-    from repro_torch.models.layers import sharding_context
     from repro_torch.train.optimizer import AdamW
-    from repro_torch.train.trainer import make_train_step
 
     init_process_group()
     try:
@@ -1218,17 +1215,11 @@ def test_a_one_rank_nccl_mesh_step_equals_the_plain_step(card):
                                         seed=0))
         out = {}
         for path in ("plain", "mesh"):
-            opt = AdamW(lr=1e-3)
-            params = {n: p.detach() for n, p in lm.params().items()}
-            state, place, resolver = opt.init(params), None, None
-            if path == "mesh":
-                params, state, _ = train.place_train_state(lm, opt, params, state, mesh)
-                place = train.batch_placer(mesh, cfg, 4, 32)
-                resolver = make_resolver(mesh, TRAIN_RULES)
-            step = make_train_step(lm, opt, accum=2, place_batch=place)
+            params, state, step, context, _ = setup_training(
+                lm, AdamW(lr=1e-3), mesh if path == "mesh" else None, rows=4, seq=32, accum=2)
             n1, n1b = fa.flash_attention.launches, fb.flash_attention_bwd.launches
             rec = []
-            with sharding_context(resolver):
+            with context:
                 for i in range(3):
                     params, state, m = step(params, state, stream.batch(i))
                     rec.append((float(m["loss"]), float(m["grad_norm"])))
