@@ -116,7 +116,19 @@ imports nothing of JAX. Phases, each of which fails the run:
    seed, losses and gradient norms bit-equal (else within 2e-3, the gap
    printed); B1, B1b, B3, B3b, B4 and B4b each launched on the mesh path;
    then a steady step of ``train_100m`` on both paths (plain, mesh, mesh,
-   plain), wall and device ms.
+   plain), wall and device ms;
+15. compression and the roofline on the card: a one-rank NCCL group and a
+   ``(1, 1, 1)`` ``("pod", "data", "model")`` mesh; ``train_100m`` at full
+   width and depth trains 10 steps (8 x 1024 tokens, 2 microbatches) with
+   ``make_pod_grad_sync`` as its ``grad_transform`` (the error tree carried
+   from step to step), once with ``int8`` and once with ``topk`` (0.05):
+   the losses fall, the first step's synced gradients and new errors are
+   bit-equal to the same functions on the CPU copy of that step's
+   gradients, B1 and B1b are launched; the sync's ms a step (wall and
+   device) and the step's MFU (``model_flops`` over device time x
+   ``PEAK_FLOPS``); then the roofline's memory counter on a real step,
+   against ``torch.cuda.max_memory_allocated()`` from a reset (both above
+   what was allocated before the step), within ``MEM_BAND``.
 
 Phase 7 also holds, in f32 card vs CPU within 2e-3: ``gemma3_12b`` cut to
 one period (5 local layers, 1 global) at full width, a prompt of 1100
@@ -172,8 +184,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_S = 3.35e12                         # H100 SXM HBM3
-PEAK_FLOP_S = {"bfloat16": 989e12,            # dense tensor-core bf16
+from repro_torch.telemetry.roofline import HBM_BW as HBM_BYTES_S  # noqa: E402  H100 SXM HBM3
+from repro_torch.telemetry.roofline import PEAK_FLOPS  # noqa: E402  dense tensor-core bf16
+
+PEAK_FLOP_S = {"bfloat16": PEAK_FLOPS,
                "float32": 67e12}              # float32 outside the tensor cores
 SMS = 132                                     # H100 SXM streaming multiprocessors
 SFU_PER_CLOCK = 16                            # ex2 a clock per SM (compute capability 9.0)
@@ -2413,6 +2427,174 @@ def _mesh_steady(warm=2, timed=5, profiled=3):
           f"a step ({mw / pw:.2f}x the wall), device {md - pd:+.1f} ms")
 
 
+MEM_BAND = 0.01      # the memory counter against max_memory_allocated, above the step's start
+                     # (measured 0.00-0.03% apart, H100 80GB HBM3 at 700 W)
+POD_SCHEMES = (("int8", 0.05), ("topk", 0.05))
+
+
+def phase_compression_roofline(steps=10):
+    """Phase 15: ``train_100m`` trained with the cross-pod gradient sync on a
+    one-rank ``(1, 1, 1)`` mesh, each scheme; the roofline's memory counter
+    on a real step. Returns each kernel's launches over the two runs (the
+    counts set to 0 just before each run and read just after)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.distributed import compression as C
+    from repro_torch.launch.mesh import init_process_group
+    from repro_torch.launch.train import setup_training
+    from repro_torch.models import LM
+    from repro_torch.telemetry import roofline as R
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+
+    init_process_group()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"process group {dist.get_backend()} of {dist.get_world_size()}")
+    mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    print(f"[pod] on {nvidia_smi()}; a (1, 1, 1) (pod, data, model) mesh of one NCCL rank")
+    cfg = get_config("train_100m")
+    flops = R.model_flops(cfg, ShapeConfig("step", 1024, 8, "train"))
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, global_batch=8))
+    batches = [stream.batch(i) for i in range(steps)]
+    wrappers = _wrappers()
+    counts = dict.fromkeys(wrappers, 0)
+    for scheme, frac in POD_SCHEMES:
+        sync = C.make_pod_grad_sync(mesh, scheme, frac)
+        st = {"err": None, "first": None, "wall": [], "device": []}
+
+        def transform(grads, sync=sync, st=st, scheme=scheme, frac=frac):
+            if st["err"] is None:
+                st["err"] = {n: torch.zeros_like(g, dtype=torch.float32) for n, g in grads.items()}
+                cpu = ({n: g.cpu() for n, g in grads.items()},
+                       {n: e.cpu() for n, e in st["err"].items()})
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t = time.perf_counter()
+            ev[0].record()
+            with torch.profiler.record_function("pod_sync"):
+                synced, st["err"] = sync(grads, st["err"])
+            ev[1].record()
+            torch.cuda.synchronize()
+            st["wall"].append((time.perf_counter() - t) * 1e3)
+            st["device"].append(ev[0].elapsed_time(ev[1]))
+            if st["first"] is None:
+                st["first"] = _pod_sync_on_the_cpu(C, scheme, frac, *cpu), (
+                    {n: g.cpu() for n, g in synced.items()},
+                    {n: e.cpu() for n, e in st["err"].items()})
+            return synced
+
+        lm = LM(cfg, device="cuda", seed=0, attn_block=TRAIN_BLOCK)
+        opt = make_optimizer("adamw", warmup_cosine(3e-3, 20, 100), cfg)
+        params, state, step, _, _ = setup_training(lm, opt, None, rows=4, seq=1024, accum=2,
+                                                   grad_transform=transform)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        losses = []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        for n, w in wrappers.items():
+            counts[n] += w.launches
+        busy = _step_device_ms(step, params, state, batches[-1])
+        check(busy["step"] > 0, "the profiler saw no kernel of the step")
+        (want_s, want_e), (got_s, got_e) = st["first"]
+        equal = all(torch.equal(got_s[n], want_s[n]) and torch.equal(got_e[n], want_e[n])
+                    for n in want_s)
+        wall, dev = float(np.mean(st["wall"][1:])), float(np.mean(st["device"][1:]))
+        print(f"[pod] train_100m with the {scheme} pod sync ({len(want_s)} leaves, error carried): "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; first step synced gradients and new "
+              f"errors {'bit-equal' if equal else 'NOT bit-equal'} to the CPU's on its copy")
+        print(f"[pod]   the sync: {wall:.2f} ms a step wall, {dev:.2f} ms device (CUDA events, "
+              f"mean of steps 2-{steps}); a steady step {busy['step']:.1f} ms device, the sync "
+              f"{busy['sync']:.2f} ms of it (profiler); MFU {flops / (busy['step'] / 1e3) / PEAK_FLOPS:.1%} "
+              f"({flops / 1e12:.2f} TFLOP a step over {PEAK_FLOPS / 1e12:.0f} TFLOP/s)")
+        check(np.isfinite(losses).all() and np.mean(losses[-3:]) < np.mean(losses[:3]),
+              f"{scheme}: the loss did not fall: {losses}")
+        check(equal, f"{scheme}: the card's first sync differs from the CPU's")
+        del params, state, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {n: counts[n] for n in ("flash_attention", "flash_attention_bwd")}
+    print(f"[pod] kernel launches over both runs {launches}")
+    check(all(launches.values()), f"a kernel of the path was not launched: {launches}")
+    _memory_counter(cfg, batches[0])
+    dist.destroy_process_group()
+    return counts
+
+
+def _pod_sync_on_the_cpu(C, scheme, frac, grads, err):
+    """What the sync gives on one pod, by the module's functions on the CPU."""
+    synced, new_err = {}, {}
+    for n, g in grads.items():
+        if scheme == "int8":
+            q, scale, new_err[n] = C.ef_compress_int8(g, err[n])
+            total = C.dequantize_int8(q, scale)
+        else:
+            total, new_err[n] = C.ef_compress_topk(g, err[n], frac)
+        synced[n] = (total / total.new_tensor(1)).to(g.dtype)
+    return synced, new_err
+
+
+def _step_device_ms(step, params, state, batch):
+    """One more step under the profiler: the device ms of its kernels, and of
+    those under the ``pod_sync`` range."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA) / 1e3
+    sync = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+               for e in prof.key_averages() if e.key == "pod_sync") / 1e3
+    return {"step": total, "sync": sync}
+
+
+def _memory_counter(cfg, batch):
+    """The roofline's memory counter on one real train_100m step against the
+    allocator's peak from a reset: each above what was allocated when the
+    step began (the arguments, and anything else on the card)."""
+    import torch
+
+    from repro_torch.launch.train import setup_training
+    from repro_torch.models import LM
+    from repro_torch.telemetry import roofline as R
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+
+    lm = LM(cfg, device="cuda", seed=0, attn_block=TRAIN_BLOCK)
+    opt = make_optimizer("adamw", warmup_cosine(3e-3, 20, 100), cfg)
+    params, state, step, _, _ = setup_training(lm, opt, None, rows=4, seq=1024, accum=2)
+    params, state, _ = step(params, state, batch)          # warm: workspaces, first calls
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mem = R.count_memory((params, state))
+    with mem:
+        out = step(params, state, batch)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counted, allocated = mem.peak - mem.argument_bytes, peak - base
+    gap = abs(counted - allocated) / allocated
+    print(f"[roofline] memory of one train_100m step (8 x 1024 tokens, 2 microbatches): the "
+          f"counter's peak {mem.peak / 2**30:.3f} GiB (arguments {mem.argument_bytes / 2**30:.3f} "
+          f"GiB), max_memory_allocated {peak / 2**30:.3f} GiB (allocated at the start "
+          f"{base / 2**30:.3f} GiB); above the start: counted {counted} bytes, allocated "
+          f"{allocated} bytes, gap {gap:.4%} (band {MEM_BAND:.0%})")
+    check(gap <= MEM_BAND, f"memory counter {counted} vs allocator {allocated}: {gap:.2%}")
+    del out, params, state, lm
+
+
 def release_images():
     """Empty the image cache, so that the card holds one large image at a time."""
     import torch
@@ -2810,6 +2992,7 @@ def main() -> int:
     launches.update(timed("train moonshot_v1_16b", phase_train_moonshot))
     release_images()
     mesh_launches = timed("train on a mesh", phase_train_mesh)
+    pod_launches = timed("compression and the roofline", phase_compression_roofline)
 
     kernels = []
     for name, label, dname, replaces, source in (
@@ -2837,6 +3020,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "launches_mesh": mesh_launches[name],
+                        "launches_pod_sync": pod_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -239,7 +239,7 @@ def mesh_shape(mesh) -> MeshShape:
         return mesh
     if not mesh.mesh_dim_names:
         raise ValueError("a mesh for the sharding rules needs named dims")
-    return MeshShape(tuple(mesh.mesh.shape), tuple(mesh.mesh_dim_names))
+    return MeshShape(tuple(mesh.size(i) for i in range(mesh.ndim)), tuple(mesh.mesh_dim_names))
 
 
 def spec_placements(mesh, spec: tuple, current=None) -> list:

@@ -122,11 +122,14 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, block_to_expert: torc
                          block_t: int) -> torch.Tensor:
     """Row block i of x times ``w[block_to_expert[i]]``, float32 sums, in x's
     type. A loop over blocks: gathering ``w[block_to_expert]`` whole would
-    make an ``nt x D x F`` copy (0.9 GB at moonshot's widths)."""
+    make an ``nt x D x F`` copy (0.9 GB at moonshot's widths). Each block
+    takes its expert's weights by ``index_select``, so no value is read on
+    the host (the dry run's fake tensors have none)."""
     y = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
-    for i, e in enumerate(block_to_expert.tolist()):
+    for i in range(block_to_expert.shape[0]):
         rows = slice(i * block_t, (i + 1) * block_t)
-        y[rows] = (x[rows].float() @ w[e].float()).to(x.dtype)
+        we = w.index_select(0, block_to_expert[i:i + 1])[0]
+        y[rows] = (x[rows].float() @ we.float()).to(x.dtype)
     return y
 
 
@@ -140,25 +143,28 @@ def grouped_matmul_bwd_plain(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     :func:`grouped_matmul_plain` for ``dy`` [T_pad, F], float32 sums; None
     for what is not needed. Under ``used_blocks``' promise (x and dy zero
     on the blocks at and past it) it leaves those blocks out: zeros in dx,
-    nothing in dw."""
-    E = w.shape[0]
-    bmap = block_to_expert.tolist()
+    nothing in dw. dW sums each expert's blocks in block order. No value is
+    read on the host: the blocks past ``used_blocks`` are masked, not cut."""
+    nt = block_to_expert.shape[0]
+    live = None
     if used_blocks is not None:
-        bmap = bmap[:int(used_blocks.item())]
+        live = torch.arange(nt, device=x.device) < used_blocks.to(x.device)
     dx = dw = None
     if need_dx:
         dx = torch.zeros_like(x)
-        for i, e in enumerate(bmap):
+        for i in range(nt):
             rows = slice(i * block_t, (i + 1) * block_t)
-            dx[rows] = (dy[rows].float() @ w[e].float().T).to(x.dtype)
+            we = w.index_select(0, block_to_expert[i:i + 1])[0]
+            d = (dy[rows].float() @ we.float().T).to(x.dtype)
+            dx[rows] = d if live is None else torch.where(live[i], d, dx[rows])
     if need_dw:
         dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-        xb, dyb = x.reshape(-1, block_t, x.shape[1]), dy.reshape(-1, block_t, dy.shape[1])
-        for e in range(E):
-            blocks = [i for i, b in enumerate(bmap) if b == e]
-            if blocks:
-                dw[e] = (xb[blocks].reshape(-1, x.shape[1]).float().T
-                         @ dyb[blocks].reshape(-1, dy.shape[1]).float())
+        for i in range(nt):
+            rows = slice(i * block_t, (i + 1) * block_t)
+            g = x[rows].float().T @ dy[rows].float()
+            if live is not None:
+                g = g * live[i]
+            dw.index_add_(0, block_to_expert[i:i + 1], g[None])
         dw = dw.to(w.dtype)
     return dx, dw
 

@@ -83,7 +83,8 @@ def _kv_for_heads(k: torch.Tensor, h0: int, hl: int, group: int) -> torch.Tensor
     return k.repeat_interleave(group, dim=2)[:, :, h0:h0 + hl]
 
 
-def attention_plan(q, k, *, head_dim: int, kv_dim: int, exact_heads: bool = False):
+def attention_plan(q, k, *, head_dim: int, kv_dim: int, exact_heads: bool = False,
+                   batch_of=None):
     """Placements for an attention kernel on local shards: q's batch (dim 0)
     and heads (``head_dim``) stay split where q has them split; the kv
     tensors split batch with q, and heads with q where their count divides
@@ -91,9 +92,11 @@ def attention_plan(q, k, *, head_dim: int, kv_dim: int, exact_heads: bool = Fals
     heads). Everything else is whole. Returns (mesh, q placements, kv
     placements, the q-head mesh dims where kv is whole). ``exact_heads``:
     keep a head split only where kv splits with it (for outputs laid out
-    by kv head, as the logsumexp is)."""
+    by kv head, as the logsumexp is). ``batch_of``: the tensor whose batch
+    split q and kv take (decode: the cache, so that q is sliced to the
+    cache's rows rather than the cache gathered to q's)."""
     mesh = mesh_of(q, k)
-    bdims = shard_dims(q, 0)
+    bdims = shard_dims(q if batch_of is None else batch_of, 0)
     hdims = [i for i in shard_dims(q, head_dim) if i not in bdims]
     KV = k.shape[kv_dim]
     n = math.prod(mesh.size(i) for i in hdims)
@@ -173,8 +176,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      positions: torch.Tensor, *, ring: bool = False) -> torch.Tensor:
     if is_meshed(q, k_cache, v_cache, positions):
-        mesh, qpl, kvpl, hdims = attention_plan(q, k_cache, head_dim=1, kv_dim=2)
-        ppl = placed(mesh, {0: shard_dims(q, 0)})
+        mesh, qpl, kvpl, hdims = attention_plan(q, k_cache, head_dim=1, kv_dim=2,
+                                                batch_of=k_cache)
+        ppl = placed(mesh, {0: shard_dims(k_cache, 0)})
         fn = local_heads(lambda q, k, v, p: decode_attention(q, k, v, p, ring=ring),
                          mesh, hdims, q.shape[1], k_cache.shape[2], (1, 2))
         return run_local(fn, mesh, [q, k_cache, v_cache, positions], [qpl, kvpl, kvpl, ppl],

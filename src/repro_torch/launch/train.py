@@ -148,6 +148,8 @@ def place_tree(tree, shardings):
     ``NamedSharding`` at its place in ``shardings``."""
     if isinstance(tree, dict):
         return {k: place_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [place_tree(v, s) for v, s in zip(tree, shardings)]
     return place(tree, shardings)
 
 
@@ -163,29 +165,29 @@ class Training(NamedTuple):
 
 
 def setup_training(model, opt, mesh=None, *, rows: int, seq: int, accum: int,
-                   grad_transform=None) -> Training:
+                   grad_transform=None, rules=TRAIN_RULES) -> Training:
     """``model``'s parameters, ``opt``'s state for them and the train step
     over ``accum`` microbatches of ``rows`` x ``seq`` tokens, on plain
-    tensors or, with ``mesh``, on it: the parameters placed by
-    ``TRAIN_RULES`` and their logical axes, the optimizer state by its
-    ``state_axes``, each microbatch's rows over ``data`` where they divide,
-    and the step run under the rules' activation constraints (the
-    ``context``)."""
+    tensors or, with ``mesh``, on it: the parameters placed by ``rules``
+    (``TRAIN_RULES``; the dry run's per-arch ones) and their logical axes,
+    the optimizer state by its ``state_axes``, each microbatch's rows over
+    ``data`` where they divide, and the step run under the rules'
+    activation constraints (the ``context``)."""
     params = {n: p.detach() for n, p in model.params().items()}
     opt_state = opt.init(params)
     if mesh is None:
         step = make_train_step(model, opt, accum=accum, grad_transform=grad_transform)
         return Training(params, opt_state, step, contextlib.nullcontext(), None)
     axes = flat_axes(model.param_axes())
-    shardings = {"p": tree_shardings(mesh, params, axes, TRAIN_RULES),
-                 "o": tree_shardings(mesh, opt_state, opt.state_axes(axes), TRAIN_RULES)}
+    shardings = {"p": tree_shardings(mesh, params, axes, rules),
+                 "o": tree_shardings(mesh, opt_state, opt.state_axes(axes), rules)}
     specs, batch_axes = input_specs(model.cfg, ShapeConfig("microbatch", seq, rows, "train"))
-    batch_sh = tree_shardings(mesh, specs, batch_axes, TRAIN_RULES)
+    batch_sh = tree_shardings(mesh, specs, batch_axes, rules)
     step = make_train_step(model, opt, accum=accum, grad_transform=grad_transform,
                            place_batch=lambda mb: {k: place(torch.as_tensor(v), batch_sh[k])
                                                    for k, v in mb.items()})
     return Training(place_tree(params, shardings["p"]), place_tree(opt_state, shardings["o"]),
-                    step, sharding_context(make_resolver(mesh, TRAIN_RULES)), shardings)
+                    step, sharding_context(make_resolver(mesh, rules)), shardings)
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import is_meshed, shard_dims
+from repro_torch.distributed.sharding import is_meshed, local_ranges, shard_dims
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
 from repro_torch.models.layers import head_rms_norm, rope, shard_act
@@ -157,7 +157,8 @@ def attn_decode(x: torch.Tensor, p: dict, cfg, layer_local: bool, cache: dict,
     """One-token attention. x: [B, D]; cache k/v [B, W, KV, hd]; positions [B].
 
     Unlike the JAX function, the new k/v are written into ``cache`` in place;
-    the returned entry holds the same tensors."""
+    the returned entry holds the same tensors. A DTensor cache is written
+    on each rank's local shard (:func:`_update_cache_meshed`)."""
     B, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(x @ p["wq"], H, hd)
@@ -171,8 +172,9 @@ def attn_decode(x: torch.Tensor, p: dict, cfg, layer_local: bool, cache: dict,
     W = cache["k"].shape[1]
     ring = bool(layer_local and cfg.sliding_window and W == cfg.sliding_window)
     slot = positions % W if ring else positions
-    _update_cache(cache["k"], k, slot)
-    _update_cache(cache["v"], v, slot)
+    write = _update_cache_meshed if is_meshed(cache["k"]) else _update_cache
+    write(cache["k"], k, slot)
+    write(cache["v"], v, slot)
     k_cache = shard_act(cache["k"], ("act_batch", "act_kv_seq", "act_kv_heads", None))
     v_cache = shard_act(cache["v"], ("act_batch", "act_kv_seq", "act_kv_heads", None))
     out = attend_decode(q, k_cache, v_cache, positions, ring=ring)
@@ -194,3 +196,32 @@ def _update_cache(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) ->
     at = torch.where(inside, slot, W - 1)
     keep = cache[rows, at]
     cache[rows, at] = torch.where(inside[:, None, None], new.to(cache.dtype), keep)
+
+
+def _update_cache_meshed(cache, new: torch.Tensor, slot: torch.Tensor) -> None:
+    """:func:`_update_cache` on a DTensor cache [B, W, KV, hd], in place on
+    each rank's local shard: ``new`` [B, KV, hd] and ``slot`` [B] are laid
+    out as the cache's batch and head dims, and a rank whose shard of W
+    (split over ``act_kv_seq``, a ring's too) is ``[w0, w1)`` writes the
+    slots that fall there, at ``slot - w0``, and drops the others."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = cache.device_mesh, cache.placements
+    ranges = local_ranges(cache.shape, mesh, pl, mesh.get_coordinate())
+    to_new = {0: 0, 2: 1, 3: 2}           # the cache's dims in new's order (W has none)
+    new_pl = [Shard(to_new[p.dim]) if isinstance(p, Shard) and p.dim in to_new else Replicate()
+              for p in pl]
+    slot_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl]
+    new_l = _local(new, mesh, new_pl, [ranges[d] for d in (0, 2, 3)])
+    slot_l = _local(slot, mesh, slot_pl, ranges[:1])
+    w0, w1 = ranges[1]
+    slot_l = torch.where(slot_l >= w0, slot_l - w0, w1 - w0)     # w1 - w0: dropped
+    _update_cache(cache.to_local(), new_l, slot_l)
+
+
+def _local(t: torch.Tensor, mesh, placements, ranges) -> torch.Tensor:
+    """This rank's shard of ``t`` under ``placements``: a DTensor's local
+    tensor after a redistribution, or the block ``ranges`` of a tensor that
+    every rank holds whole."""
+    if is_meshed(t):
+        return t.redistribute(mesh, placements).to_local()
+    return t[tuple(slice(a, z) for a, z in ranges)]

@@ -78,7 +78,8 @@ def mamba_decode(x: torch.Tensor, p: dict, cfg, cache: dict) -> Tuple[torch.Tens
 
     Unlike the JAX function, the new conv window and SSM state are written
     into ``cache`` in place (its tensors may be views of a stacked cache);
-    the returned cache holds the same tensors."""
+    the returned cache holds the same tensors. A DTensor cache takes the
+    writes through DTensor's ``copy_``, each rank into its own shard."""
     m = cfg.mamba
     xi = x @ p["in_x"]
     z = x @ p["in_z"]

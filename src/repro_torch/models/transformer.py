@@ -26,6 +26,11 @@ Modes:
   updates in place (the JAX function returns a new cache; the port writes
   one row per layer instead of copying the cache each step)
 
+``prefill`` and ``decode_step`` take the module's parameters or, like
+``loss_fn``, a dict of them, which may be DTensors of a device mesh (the
+dry run's, under ``PREFILL_RULES`` and ``DECODE_RULES``); a meshed cache is
+written shard by shard, each rank its own rows and slots.
+
 Attention and Mamba slots, each with a dense MLP or an MoE layer after it,
 and both frontends are ported. Activations are constrained with
 ``layers.shard_act`` where the JAX model constrains them, so the same code
@@ -47,6 +52,7 @@ of the 51.6 GiB of bf16 parameters (an expert stack's period slice,
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -57,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BLOCK_ATTN, ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import is_meshed
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -335,8 +342,9 @@ class LM(nn.Module):
         P = self._parameters if params is None else params
         return P["unembed"] if "unembed" in P else P["embed"]
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        out = x @ self._head().T
+    def logits(self, x: torch.Tensor,
+               params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        out = x @ self._head(params).T
         names = ("act_batch", "act_seq", "act_vocab") if out.dim() == 3 \
             else ("act_batch", "act_vocab")
         return shard_act(out, names)
@@ -455,27 +463,36 @@ class LM(nn.Module):
         return torch.zeros((), device=self.device)
 
     @torch.no_grad()
-    def prefill(self, batch):
+    def prefill(self, batch, params: Optional[Dict[str, torch.Tensor]] = None):
         """Returns (last-token logits [B, V], cache). The logits are taken at the
-        padded end, x[:, -1], as in the JAX package."""
-        x, caches = self.forward_seq(batch, want_cache=True)
-        return self.logits(x[:, -1]), {"slots": caches}
+        padded end, x[:, -1], as in the JAX package. ``params`` (named as
+        ``params()`` names them; the module's own by default) may be
+        DTensors of a device mesh: the cache is then DTensors too."""
+        with _replicating(params):
+            x, caches = self.forward_seq(batch, want_cache=True, params=params)
+            return self.logits(x[:, -1], params), {"slots": caches}
 
     # ------------------------------------------------------------------
     # Decode mode
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def decode_step(self, cache, batch):
+    def decode_step(self, cache, batch, params: Optional[Dict[str, torch.Tensor]] = None):
         """batch: {token: [B] int, pos: [B] int}. Returns (logits, cache); the
-        cache is updated in place (every block writes its layer's slice)."""
-        x = shard_act(self.embed[batch["token"].to(self.device)], ("act_batch", "act_embed"))
-        positions = batch["pos"].to(self.device)
-        for k in range(self.num_periods):
-            for s, (slot, sk) in enumerate(zip(self.slots, self.slot_kinds)):
-                layer_cache = {name: c[k] for name, c in cache["slots"][s].items()}
-                x, _ = self._block_decode(x, slot.period(k), sk, layer_cache, positions)
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return self.logits(x), cache
+        cache is updated in place (every block writes its layer's slice).
+        ``params`` as :meth:`prefill` takes them; on a device mesh the cache
+        is DTensors, and each rank writes the rows and slots of its shard."""
+        P = self._parameters if params is None else params
+        periods = None if params is None else self._periods(params)
+        with _replicating(params):
+            x = shard_act(P["embed"][batch["token"].to(self.device)], ("act_batch", "act_embed"))
+            positions = batch["pos"].to(self.device)
+            for k in range(self.num_periods):
+                for s, (slot, sk) in enumerate(zip(self.slots, self.slot_kinds)):
+                    layer_cache = {name: c[k] for name, c in cache["slots"][s].items()}
+                    p = slot.period(k) if periods is None else periods[k][s]
+                    x, _ = self._block_decode(x, p, sk, layer_cache, positions)
+            x = rms_norm(x, P["final_norm"], self.cfg.norm_eps)
+            return self.logits(x, params), cache
 
     # ------------------------------------------------------------------
     # Caches
@@ -486,29 +503,45 @@ class LM(nn.Module):
         return max_len
 
     def cache_specs(self, batch_size: int, max_len: int):
-        """``(shape, dtype)`` of every decode-cache tensor, per slot: attention
-        k/v [K, B, W, KV, hd] in the model's dtype; Mamba conv [K, B, d_conv-1,
-        DI] in the model's dtype and ssm [K, B, DI, N] in float32 whatever the
-        model's dtype, as in the JAX package."""
+        """(``(shape, dtype)`` of every decode-cache tensor, its logical axes),
+        per slot, as the JAX package gives them: attention k/v [K, B, W, KV,
+        hd] in the model's dtype, axes ``("w_layers", "act_batch",
+        "act_kv_seq", "act_kv_heads", None)``; Mamba conv [K, B, d_conv-1,
+        DI] in the model's dtype and ssm [K, B, DI, N] in float32 whatever
+        the model's dtype, axes ``("w_layers", "act_batch", None,
+        "act_mlp")`` and ``("w_layers", "act_batch", "act_mlp", None)``."""
         c = self.cfg
         K = self.num_periods
-        specs = []
+        specs, axes = [], []
         for sk in self.slot_kinds:
             if sk.kind == BLOCK_ATTN:
                 W = self._cache_width(sk, max_len)
                 sh = (K, batch_size, W, c.num_kv_heads, c.head_dim)
+                ax = ("w_layers", "act_batch", "act_kv_seq", "act_kv_heads", None)
                 specs.append({"k": (sh, self.dtype), "v": (sh, self.dtype)})
+                axes.append({"k": ax, "v": ax})
             else:
                 m = c.mamba
                 specs.append({
                     "conv": ((K, batch_size, m.d_conv - 1, m.d_inner), self.dtype),
                     "ssm": ((K, batch_size, m.d_inner, m.d_state), torch.float32)})
-        return {"slots": specs}
+                axes.append({"conv": ("w_layers", "act_batch", None, "act_mlp"),
+                             "ssm": ("w_layers", "act_batch", "act_mlp", None)})
+        return {"slots": specs}, {"slots": axes}
 
     def init_cache(self, batch_size: int, max_len: int):
-        specs = self.cache_specs(batch_size, max_len)
+        specs, _ = self.cache_specs(batch_size, max_len)
         return {"slots": [{name: torch.zeros(sh, dtype=dt, device=self.device)
                            for name, (sh, dt) in s.items()} for s in specs["slots"]]}
+
+
+def _replicating(params):
+    """``implicit_replication`` where ``params`` are DTensors (the plain
+    tensors the model makes then act as replicated), else nothing."""
+    if params is not None and is_meshed(*params.values()):
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+    return contextlib.nullcontext()
 
 
 def _label_logprob(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

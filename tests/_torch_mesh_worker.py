@@ -4,9 +4,9 @@ as
     python -m torch.distributed.run --standalone --nproc-per-node 8 \\
         tests/_torch_mesh_worker.py <dir>
 
-Each rank joins a gloo group and runs the two jobs in turn; rank 0 writes
+Each rank joins a gloo group and runs the four jobs in turn; rank 0 writes
 their results into <dir> (``train.json``, ``ckpt.json``, :func:`save_run`'s
-files).
+files, ``pods.json``, ``serve.json``).
 
 * ``train``: for each of :data:`RUNS`, trains the config ``<arch>.json`` from
   the weights ``<arch>.npz`` in <dir> on a ``(8 / model axis, model axis)``
@@ -23,6 +23,17 @@ files).
   into <dir>/jax from 8 devices the same way (waiting for it); runs the
   train launcher for 6 steps with a checkpoint every 3 on ``--model-axis
   2``, then resumes it from step 3 on ``--model-axis 4``.
+* ``pods``: ``make_pod_grad_sync`` over a ``("pod",)`` mesh of the 8 ranks,
+  each rank its pod's gradient (row ``rank`` of <dir>/pod_grads.npy), two
+  rounds (the second from the first's error) of each scheme; and DTensor
+  leaves split over ``data`` on a ``(2, 4)`` ``("pod", "data")`` mesh
+  (``pods.json``).
+* ``serve``: for :data:`SERVE_ARCHS`, a prefill on the ``(4, 2)`` mesh under
+  ``PREFILL_RULES`` and 3 decode steps under ``DECODE_RULES`` (gemma3's
+  cache split over its slots, so that its ring writes land in one rank's
+  shard) against the same run on plain tensors; and :func:`count_cells` on
+  real tensors, which tests/test_torch_mesh.py holds to the same count on
+  fake tensors of a fake group (``serve.json``).
 """
 import json
 import os
@@ -34,12 +45,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dataclasses import replace
+
 from repro_torch.bridge import params_from_numpy
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import SHAPES, ModelConfig, get_config, reduced
 from repro_torch.data.pipeline import DataConfig, TokenStream
 from repro_torch.distributed.checkpoint import CheckpointManager
-from repro_torch.distributed.sharding import (TRAIN_RULES, NamedSharding, make_resolver, place,
-                                              placements_spec)
+from repro_torch.distributed.sharding import (DECODE_RULES, PREFILL_RULES, TRAIN_RULES,
+                                              NamedSharding, make_resolver, place,
+                                              placements_spec, rules_for_cfg, tree_shardings)
 from repro_torch.launch import train as launcher
 from repro_torch.launch.mesh import init_process_group, make_local_mesh
 from repro_torch.models import LM
@@ -360,6 +374,156 @@ def ckpt_job(out: str, meshes: dict) -> None:
             json.dump(res, f)
 
 
+SCHEMES = ("int8", "topk", "none")
+
+
+def pods_job(out: str) -> None:
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.compression import make_pod_grad_sync
+    t0 = time.monotonic()
+    rank = dist.get_rank()
+    g = np.load(os.path.join(out, "pod_grads.npy"))          # [8 pods, 64]
+    mesh = init_device_mesh("cpu", (8,), mesh_dim_names=("pod",))
+    res = {}
+    for scheme in SCHEMES:
+        sync = make_pod_grad_sync(mesh, scheme)
+        s1, e1 = sync({"w": torch.as_tensor(g[rank])}, {"w": torch.zeros(64)})
+        s2, e2 = sync({"w": torch.as_tensor(g[rank])}, e1)
+        res[scheme] = [t["w"].tolist() for t in (s1, e1, s2, e2)]
+    # a leaf split over data on (2, 4): pod p's ranks hold g[p]'s quarters
+    m2 = init_device_mesh("cpu", (2, 4), mesh_dim_names=("pod", "data"))
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    p, d = m2.get_coordinate()
+    local = torch.as_tensor(g[p, d * 16:(d + 1) * 16])
+    leaf = DTensor.from_local(local, m2, [Replicate(), Shard(0)], run_check=False,
+                              shape=(64,), stride=(1,))
+    err = DTensor.from_local(torch.zeros(16), m2, [Replicate(), Shard(0)], run_check=False,
+                             shape=(64,), stride=(1,))
+    s, e = make_pod_grad_sync(m2, "int8")([leaf], [err])
+    res["dtensor"] = {"coord": [p, d], "placements": repr(tuple(s[0].placements)),
+                      "err_placements": repr(tuple(e[0].placements)),
+                      "synced": s[0].to_local().tolist(), "err": e[0].to_local().tolist()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, res)
+    _took("the pod syncs", t0)
+    if rank == 0:
+        with open(os.path.join(out, "pods.json"), "w") as f:
+            json.dump(every, f)
+
+
+SERVE_ARCHS = ("qwen3_32b", "falcon_mamba_7b", "gemma3_12b")
+PROMPT, MAX_LEN, BATCH = 24, 32, 4
+
+
+def _f32(arch: str):
+    return replace(reduced(get_config(arch)), dtype="float32")
+
+
+def _tree_err(a, b) -> float:
+    return max(_err(x, y) for sa, sb in zip(a["slots"], b["slots"]) for x, y in
+               zip(sa.values(), sb.values()))
+
+
+def _padded(lm: LM, cache: dict) -> dict:
+    """A prefill's cache copied into one of ``MAX_LEN`` slots."""
+    big = lm.init_cache(BATCH, MAX_LEN)
+    for sb, sp in zip(big["slots"], cache["slots"]):
+        for n, t in sb.items():
+            t[:, :, :sp[n].shape[2]].copy_(sp[n])
+    return big
+
+
+def _cache_shardings(lm: LM, mesh, arch: str):
+    """The decode rules' cache shardings; gemma3's split over the slots
+    (its 4 kv heads would otherwise take the model axis)."""
+    specs, axes = lm.cache_specs(BATCH, MAX_LEN)
+    meta = {"slots": [{n: torch.empty(sh, dtype=dt, device="meta") for n, (sh, dt) in sl.items()}
+                      for sl in specs["slots"]]}
+    sh = tree_shardings(mesh, meta, axes, DECODE_RULES)
+    if arch == "gemma3_12b":
+        sh = {"slots": [{n: NamedSharding(mesh, (None, "data", "model")) for n in sl}
+                        for sl in sh["slots"]]}
+    return sh
+
+
+def serve_run(mesh, arch: str) -> dict:
+    """Prefill and 3 decode steps on plain tensors and on ``mesh``: each
+    step's max abs error of the logits and the caches."""
+    cfg = _f32(arch)
+    lm = LM(cfg, device="cpu", seed=0, attn_block=16)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    params = {n: p.detach() for n, p in lm.params().items()}
+    axes = launcher.flat_axes(lm.param_axes())
+    logits, cache = lm.prefill({"tokens": tokens})
+    pp = launcher.place_tree(params, tree_shardings(mesh, params, axes, PREFILL_RULES))
+    with sharding_context(make_resolver(mesh, PREFILL_RULES)):
+        dlogits, dcache = lm.prefill({"tokens": tokens}, params=pp)
+    res = {"prefill": [_err(dlogits, logits), _tree_err(dcache, cache)]}
+    cache = _padded(lm, cache)
+    sh = _cache_shardings(lm, mesh, arch)
+    dcache = launcher.place_tree(cache, sh)
+    res["cache_placements"] = sorted({repr(tuple(t.placements)) for sl in dcache["slots"]
+                                      for t in sl.values()})
+    dp = launcher.place_tree(params, tree_shardings(mesh, params, axes, DECODE_RULES))
+    tok, res["decode"] = logits.argmax(-1), []
+    for i in range(3):
+        batch = {"token": tok, "pos": torch.full((BATCH,), PROMPT + i)}
+        logits, cache = lm.decode_step(cache, batch)
+        with sharding_context(make_resolver(mesh, DECODE_RULES)):
+            dlogits, dcache = lm.decode_step(dcache, batch, params=dp)
+        res["decode"].append([_err(dlogits, logits), _tree_err(dcache, cache)])
+        tok = logits.argmax(-1)
+    return res
+
+
+COUNT_SHAPES = {"train": replace(SHAPES["train_4k"], global_batch=8, seq_len=64),
+                "prefill": replace(SHAPES["prefill_32k"], global_batch=8, seq_len=32),
+                "decode": replace(SHAPES["decode_32k"], global_batch=8, seq_len=32)}
+
+
+def count_cells(mesh) -> dict:
+    """The dry run's counts (``launch.dryrun.build_cell`` under the three
+    counters) of one train step of qwen3, and one prefill and 3 decode steps
+    of each of :data:`SERVE_ARCHS` (falcon for the Mamba cache, gemma3 for
+    the rings), reduced, on ``mesh``: on real tensors, or fake ones under
+    ``FakeTensorMode``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.telemetry import roofline as R
+    torch.manual_seed(0)
+    res = {}
+    for arch in SERVE_ARCHS:
+        cfg = _f32(arch)
+        model = LM(cfg, device="cpu", attn_block=16)
+        for mode, shape in COUNT_SHAPES.items():
+            if mode == "train" and arch != "qwen3_32b":
+                continue
+            fn, args, _, _ = dryrun.build_cell(cfg, shape, mesh, rules_for_cfg(shape.mode, cfg),
+                                               model=model)
+            mem = R.count_memory(args)
+            with mem, R.count_collectives() as coll, R.count_costs() as cost:
+                for _ in range(3 if mode == "decode" else 1):
+                    fn(*args)
+            res[f"{arch}/{mode}"] = {"flops": cost.flops, "bytes": cost.bytes,
+                                     "ops": coll.stats.ops, "raw_bytes": coll.stats.raw_bytes,
+                                     "link_bytes": coll.stats.link_bytes, "peak": mem.peak,
+                                     "argument": mem.argument_bytes}
+    return res
+
+
+def serve_job(out: str, mesh) -> None:
+    t0 = time.monotonic()
+    res = {arch: serve_run(mesh, arch) for arch in SERVE_ARCHS}
+    _took("meshed prefill and decode", t0)
+    t0 = time.monotonic()
+    res["counts"] = count_cells(mesh)
+    _took("the dry run's counts on real tensors", t0)
+    if dist.get_rank() == 0:
+        with open(os.path.join(out, "serve.json"), "w") as f:
+            json.dump(res, f)
+
+
 def _wait_for(path: str, timeout: float = 300) -> None:
     """Waits for ``path`` (a file another process writes) to appear."""
     t = time.monotonic()
@@ -376,6 +540,8 @@ def main():
         meshes = {a: make_local_mesh(model_axis=a, device="cpu") for a in (2, 4)}
         train_job(out, meshes)
         ckpt_job(out, meshes)
+        pods_job(out)
+        serve_job(out, meshes[2])
     finally:
         dist.destroy_process_group()
 

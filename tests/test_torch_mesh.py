@@ -42,11 +42,20 @@ collective fails a test instead of the whole run.
   rank 0 prints.
 * The refusals: a model axis of 3 on 8 ranks, a production mesh on the wrong
   world, a process group other than NCCL on CUDA.
+* The cross-pod gradient sync (``distributed.compression``) over the 8
+  ranks' ``pod`` dim against the JAX package's ``shard_map`` over 8 devices
+  (the oracle subprocess), and on DTensor leaves.
+* ``LM.prefill`` and ``LM.decode_step`` on DTensor parameters and caches
+  against the plain run (qwen3, falcon's Mamba cache, gemma3's rings).
+* The dry run's counters: one reduced step counted on the ranks' real
+  tensors equals the same step counted on fake tensors of a fake 8-rank
+  group (a third subprocess, started with the other two).
 """
 import json
 import os
 import re
 import textwrap
+from pathlib import Path
 from dataclasses import replace
 
 import numpy as np
@@ -62,12 +71,14 @@ from repro.configs import reduced  # noqa: E402
 from repro.distributed.checkpoint import CheckpointManager as JaxManager  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
-from _torch_mesh_worker import ARCHS, NO_PARAM_CHECK, RUNS, load_run  # noqa: E402
+from _torch_mesh_worker import (ARCHS, NO_PARAM_CHECK, RUNS, SCHEMES, SERVE_ARCHS,  # noqa: E402
+                                load_run)
 from _torch_subprocs import finish, python_sub, stop, torch_ranks  # noqa: E402
 from repro_torch.configs import ModelConfig  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
 
+TESTS = str(Path(__file__).resolve().parent)
 LOSS_TOL = 2e-3
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
 PARAM_RTOL, PARAM_ATOL = 5e-4, 5e-5
@@ -153,8 +164,45 @@ JAX_ORACLE = """
                 losses.append(float(m["loss"]))
                 gnorms.append(float(m["grad_norm"]))
         out[arch] = {"losses": losses, "grad_norms": gnorms}
+    # the pod sync of tests/test_distributed_8dev.py::test_compressed_pod_psum_numerics:
+    # each pod's gradient a row of pod_grads.npy, two rounds of each scheme
+    from functools import partial
+    from repro.distributed.compression import make_pod_grad_sync
+    pmesh = jax.make_mesh((8,), ("pod",), axis_types=(jax.sharding.AxisType.Auto,))
+    g = jnp.asarray(np.load(f"{DIR}/pod_grads.npy"))
+    out["pods"] = {}
+    for scheme in ("int8", "topk", "none"):
+        sync = make_pod_grad_sync(pmesh, scheme)
+
+        @partial(jax.shard_map, mesh=pmesh, in_specs=(P("pod"), P("pod")),
+                 out_specs=(P("pod"), P("pod")))
+        def run(g, e):
+            s, ne = sync({"w": g[0]}, {"w": e[0]})
+            return s["w"][None], ne["w"][None]
+        s1, e1 = run(g, jnp.zeros((8, 64)))
+        s2, e2 = run(g, e1)
+        out["pods"][scheme] = [np.asarray(t).tolist() for t in (s1, e1, s2, e2)]
     with open(OUT, "w") as f:
         json.dump(out, f)
+"""
+
+# the dry run's counts on fake tensors of a fake 8-rank group, for the ranks'
+# counts on real ones
+FAKE_COUNTS = """
+    import json, sys
+    sys.path.insert(0, TESTS)
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from _torch_mesh_worker import count_cells
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    mesh = make_local_mesh(model_axis=2, device="cpu")
+    with FakeTensorMode():
+        got = count_cells(mesh)
+    dist.destroy_process_group()
+    with open(OUT, "w") as f:
+        json.dump(got, f)
 """
 # the JAX package's sharded runs (AdamW) the port's are held to: arch -> steps
 SHARDED = {"qwen3_32b": 6, "moonshot_v1_16b": 3, "falcon_mamba_7b": 3}
@@ -195,16 +243,20 @@ def runs(tmp_path_factory):
         np.savez(d / f"{arch}.npz", **_flat_np(jax.tree.map(np.asarray, params)))
         with open(d / f"{arch}.json", "w") as f:
             f.write(jcfg.to_json())
+    np.save(d / "pod_grads.npy", np.asarray(jax.random.normal(jax.random.PRNGKey(0), (8, 64))))
     oracle = python_sub(f"OUT = {str(d / 'jax.json')!r}\nCKPT = {str(d / 'jax')!r}\n"
                         f"DIR = {str(d)!r}\nMODEL_AXIS = {MODEL_AXIS!r}\n"
                         f"SHARDED = {SHARDED!r}\n" + textwrap.dedent(JAX_ORACLE),
                         str(d / "jax.log"), devices=8)
     ranks = torch_ranks(str(d))
+    fake = python_sub(f"OUT = {str(d / 'fake_counts.json')!r}\nTESTS = {TESTS!r}\n"
+                      + textwrap.dedent(FAKE_COUNTS), str(d / "fake.log"))
     try:
         finish(oracle)
+        finish(fake)
         ranks_log = finish(ranks)
     finally:
-        stop(oracle, ranks)
+        stop(oracle, ranks, fake)
     with open(d / "jax.json") as f:
         jax_res = json.load(f)
     with open(d / "train.json") as f:
@@ -214,8 +266,15 @@ def runs(tmp_path_factory):
     single = {name: load_run(str(d), f"single_{name}") for name in RUNS}
     with open(d / "ckpt.json") as f:
         ckpt = json.load(f)
+    with open(d / "pods.json") as f:
+        pods = json.load(f)
+    with open(d / "serve.json") as f:
+        serve = json.load(f)
+    with open(d / "fake_counts.json") as f:
+        fake_counts = json.load(f)
     return {"jax": jax_res, "port": port, "single": single, "dir": d, "ckpt": ckpt,
-            "log": ranks_log}
+            "log": ranks_log, "pods": pods, "serve": serve, "fake_counts": fake_counts,
+            "pod_grads": np.load(d / "pod_grads.npy")}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -485,3 +544,73 @@ def test_the_launcher_trains_on_8_ranks_and_resumes_on_another_model_axis(runs):
                                rtol=0, atol=5e-5)
     assert runs["log"].count("[train] done") == 2          # two runs; only rank 0 prints
     assert runs["log"].count("[train] resumed at step 3") == 1
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_pod_grad_sync_on_8_ranks_matches_the_jax_shard_map(runs, scheme):
+    """``make_pod_grad_sync`` over the 8 ranks' ``pod`` dim against the JAX
+    package's inside ``shard_map`` over 8 devices, on the gradients of
+    tests/test_distributed_8dev.py::test_compressed_pod_psum_numerics: each
+    pod's synced mean and new error, two rounds (the second from the first's
+    error), within 1e-6 (the same payloads, summed in another order)."""
+    want = runs["jax"]["pods"][scheme]
+    for rank, got in enumerate(runs["pods"]):
+        for k, (a, b) in enumerate(zip(got[scheme], want)):
+            np.testing.assert_allclose(a, b[rank], rtol=0, atol=1e-6, err_msg=f"{rank} {k}")
+    g = runs["pod_grads"]
+    synced = np.asarray(runs["pods"][0][scheme][0])
+    err = float(np.abs(synced - g.mean(0)).max())
+    assert err < (1e-6 if scheme == "none" else 0.05 if scheme == "int8" else 1.0), err
+    if scheme == "none":
+        assert not np.any(runs["pods"][3][scheme][1])      # the error is kept (zeros)
+
+
+def test_pod_grad_sync_keeps_a_dtensors_placements(runs):
+    """A leaf split over ``data`` on a ``(2, 4)`` ``("pod", "data")`` mesh is
+    synced through its local shard: the synced mean and the new error keep
+    the leaf's placements, and equal the mean over the 2 pods of each
+    shard's own int8 compression."""
+    from repro_torch.distributed import compression as C
+    g = runs["pod_grads"]
+    for res in runs["pods"]:
+        got = res["dtensor"]
+        p, d = got["coord"]
+        assert got["placements"] == got["err_placements"] == "(Replicate(), Shard(dim=0))"
+        pods = [torch.as_tensor(g[q, d * 16:(d + 1) * 16]) for q in (0, 1)]
+        sent = [C.ef_compress_int8(x, torch.zeros(16)) for x in pods]
+        mean = sum(C.dequantize_int8(q, s) for q, s, _ in sent) / 2
+        np.testing.assert_allclose(got["synced"], mean.numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got["err"], sent[p][2].numpy(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_meshed_prefill_and_decode_equal_the_single_process_run(runs, arch):
+    """``LM.prefill`` on DTensor parameters under ``PREFILL_RULES`` and 3
+    ``LM.decode_step``s on a DTensor cache under ``DECODE_RULES`` (on the
+    ranks' (4, 2) mesh) give the plain run's logits and caches within 1e-5
+    in float32. qwen3's cache is split over its slots by the rules (one kv
+    head), gemma3's by the test, so its ring writes land in one rank's
+    shard; falcon's Mamba cache is split over its channels."""
+    got = runs["serve"][arch]
+    assert max(got["prefill"]) <= 1e-5, got["prefill"]
+    assert len(got["decode"]) == 3
+    for step in got["decode"]:
+        assert max(step) <= 1e-5, got["decode"]
+    if arch != "falcon_mamba_7b":
+        assert got["cache_placements"] == ["(Shard(dim=1), Shard(dim=2))"]
+    else:
+        assert "(Shard(dim=1), Shard(dim=3))" in got["cache_placements"]
+
+
+@pytest.mark.parametrize("cell", ["qwen3_32b/train", "qwen3_32b/prefill", "qwen3_32b/decode",
+                                  "falcon_mamba_7b/prefill", "falcon_mamba_7b/decode",
+                                  "gemma3_12b/prefill", "gemma3_12b/decode"])
+def test_the_fake_group_counts_what_the_real_ranks_count(runs, cell):
+    """The dry run's counters on a reduced step (``_torch_mesh_worker.
+    count_cells``: one train step, one prefill, 3 decode steps) under a fake
+    8-rank group on fake tensors count exactly the FLOPs, bytes,
+    collectives, peak and argument bytes that the 8 gloo ranks count on
+    real tensors of the same (4, 2) mesh."""
+    fake, real = runs["fake_counts"][cell], runs["serve"]["counts"][cell]
+    assert fake == real
+    assert real["flops"] > 0 and real["peak"] > real["argument"] > 0 and real["ops"]

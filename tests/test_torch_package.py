@@ -26,13 +26,19 @@ def _modules():
 
 def test_import_leaves_jax_repro_and_triton_out():
     """Importing every module of the port loads no JAX, nothing of the JAX
-    package and no Triton, and starts no process group (``launch.mesh``
-    included)."""
-    assert {"repro_torch.serving.engine", "repro_torch.launch.mesh"} <= set(_modules())
+    package, no Triton and not ``torch.testing._internal.distributed`` (the
+    dry run's fake process group is imported inside ``launch.dryrun.run_cell``;
+    ``import torch`` itself loads other modules of ``torch.testing._internal``), and
+    starts no process group (``launch.mesh``, the dry run, the sweep and the
+    compression included)."""
+    assert {"repro_torch.serving.engine", "repro_torch.launch.mesh",
+            "repro_torch.distributed.compression", "repro_torch.telemetry.roofline",
+            "repro_torch.telemetry.report", "repro_torch.telemetry.compare",
+            "repro_torch.launch.dryrun", "repro_torch.launch.sweep"} <= set(_modules())
     code = ("import importlib, json, sys\n"
             f"for m in {_modules()!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro', 'triton'))\n"
+            "('jax', 'jaxlib', 'repro', 'triton') or m.startswith('torch.testing._internal.distributed'))\n"
             "import torch.distributed as dist\n"
             "bad += ['a process group'] if dist.is_available() and dist.is_initialized() "
             "else []\n"
