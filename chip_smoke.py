@@ -342,9 +342,25 @@ GMM_BWD_CASES = [
     ("moonshot microbatch wg/wi", 4, 1024, 2048, 1408),
     ("moonshot microbatch wo", 4, 1024, 1408, 2048),
 ]
+# (label, B, W, H, KV, hd, ring, ranges): B2's slot-range route, a cache split
+# over ranks, each range's partial against the plain partial form and the
+# ranges combined against B2's whole call. The first is the mesh path's call
+# (phase 14: tiny_lm's decode on one rank, every slot its range); 4 ranks'
+# shares of qwen3_32b's decode_32k cache (8 sequences, 64 heads on 8 kv
+# heads, the 32 768 slots over 16 ranks: 2048 each, the split route);
+# gemma3's ring, and its global layers with a short sequence (ranges with
+# every slot masked) in uneven ranges
+DECODE_PARTIAL_CASES = [
+    ("tiny_lm c4 W64, one rank", 4, 64, 8, 4, 32, False, 1),
+    ("tiny_lm c4 W64, 2 ranges", 4, 64, 8, 4, 32, False, 2),
+    ("qwen3_32b decode_32k, 4 ranks' slots", 8, 8192, 64, 8, 128, False, 4),
+    ("gemma3 local c2 W1024 ring, 2 ranges", 2, 1024, 16, 8, 256, True, 2),
+    ("gemma3 global c2 W2048, 3 ranges, a short prompt", 2, 2048, 16, 8, 256, False, 3),
+]
 # the shapes the kernels line reports: the engine's commonest calls
 FLASH_LINE = "tiny_lm S32"
 DECODE_LINE = "tiny_lm c4 W64"
+DECODE_PARTIAL_LINE = "tiny_lm c4 W64, one rank"
 MAMBA_LINE = "falcon_mamba_7b S32"
 GMM_LINE = "moonshot decode c2 wg/wi"    # 2 of B4's 3 calls per layer of a decode step
 BWD_LINE = "train_100m microbatch"
@@ -571,6 +587,7 @@ def phase_kernels():
             if not label.startswith("sweep"):
                 rows[("decode_attention", label, dname)] = _time_decode(
                     F, dec, q, kc, vc, pos, ring, dname, err)
+    rows.update(_check_decode_partial())
     rows.update(_check_mamba(gen))
     rows.update(_check_gmm(gen))
     rows.update(_check_train_attention())
@@ -804,6 +821,109 @@ def _time_decode(F, dec, q, kc, vc, pos, ring, dname, err):
     route = dec.decode_route(B, KV, W, hd, q.element_size())[0]
     return _timings(kern, dec.decode_attention, plain, lib,
                     f"B{B} W{W} H{H} KV{KV} hd{hd}, {route}", err, lib_err, b_ms, b_by)
+
+
+def _check_decode_partial():
+    """B2's slot-range route (:data:`DECODE_PARTIAL_CASES`): each range's
+    partial against the plain partial form (m within 1e-5, l and acc / l
+    within the type's tolerance; m = -inf, l = 0, acc = 0 where every slot
+    is masked), the ranges combined against B2's whole call and the plain
+    version; the mesh path's case timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import decode_attention as dec
+    rows = {}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        tol = TOL[dname]
+        for case in DECODE_PARTIAL_CASES:
+            label, B, W, H, KV, hd, ring, nr = case
+            g = _own_gen("decode_attention_partial", label, dname)
+            q = _inputs(g, (B, H, hd), dtype)
+            kc = _inputs(g, (B, W, KV, hd), dtype)
+            vc = _inputs(g, (B, W, KV, hd), dtype)
+            rng = np.random.default_rng(B * W + H)
+            pos = rng.integers(W, 2 * W, B) if ring else rng.integers(16, W, B)
+            if "short" in label:
+                pos[0] = 30
+            pos = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+            bounds = [round(W * i / nr / 8) * 8 for i in range(nr + 1)]
+            parts, err, masked = [], 0.0, 0
+            for a, b in zip(bounds, bounds[1:]):
+                k, v = kc[:, a:b], vc[:, a:b]
+                acc, m, l = dec.decode_attention_partial(q, k, v, pos, ring=ring, offset=a,
+                                                         total=W)
+                wa, wm, wl = dec.decode_attention_partial_plain(q, k, v, pos, ring=ring,
+                                                                offset=a, total=W)
+                torch.cuda.synchronize()
+                dead = torch.isinf(wm)
+                masked += int(dead.sum())
+                check(torch.equal(torch.isinf(m), dead) and bool((l[dead] == 0).all())
+                      and bool((acc[dead] == 0).all()) and bool((m[dead] < 0).all()),
+                      f"decode_attention_partial {label} {dname}: a masked range's partial")
+                live = ~dead
+                norm = lambda a_, l_: (a_ / l_.clamp_min(1e-30)[..., None])[live]  # noqa: E731
+                e = max((m[live] - wm[live]).abs().max().item() if live.any() else 0.0,
+                        ((l[live] - wl[live]).abs() / wl[live]).max().item()
+                        if live.any() else 0.0,
+                        (norm(acc, l) - norm(wa, wl)).abs().max().item() if live.any() else 0.0)
+                check(e <= tol, f"decode_attention_partial {label} {dname} [{a}, {b}): {e}")
+                err = max(err, e)
+                parts.append((acc, m, l))
+            out = dec.combine_partials(parts, dtype)
+            whole = dec.decode_attention(q, kc, vc, pos, ring=ring)
+            plain = dec.decode_attention_plain(q, kc, vc, pos, ring=ring)
+            e_whole = (out.float() - whole.float()).abs().max().item()
+            e_plain = (out.float() - plain.float()).abs().max().item()
+            routes = sorted({dec.decode_route(B, KV, b - a, hd, q.element_size())[0]
+                             for a, b in zip(bounds, bounds[1:])})
+            ok = e_whole <= tol and e_plain <= tol
+            print(f"[kernels] decode_attention_partial {label} B{B} W{W} H{H} KV{KV} hd{hd} "
+                  f"ring={ring} {dname} [{', '.join(routes)}; {nr} range(s), {masked} "
+                  f"(sequence, head) partials fully masked]: max_abs_err {err:.3e} against the "
+                  f"plain partials; combined against B2 whole {e_whole:.3e}, plain "
+                  f"{e_plain:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"decode_attention_partial {label} {dname}: the combined partials disagree")
+            if "short" in label:
+                check(masked > 0, f"{label}: no range was fully masked")
+            if label == DECODE_PARTIAL_LINE:
+                rows[("decode_attention_partial", label, dname)] = _time_decode_partial(
+                    dec, q, kc, vc, pos, ring, dname, err)
+    return rows
+
+
+def _time_decode_partial(dec, q, kc, vc, pos, ring, dname, err):
+    """The partial route over every slot of one rank (the mesh path's call).
+    A range's partial is the pair (out, lse), out = acc / l and lse = m + log
+    l: the library call is the memory-efficient attention with its
+    logsumexp, kv heads expanded and the range's slot mask as its bias."""
+    import torch
+    B, W, KV, hd = kc.shape
+    H = q.shape[1]
+    slot = torch.arange(W, device=q.device)
+    valid = slot[None, :] <= pos[:, None].long()
+    if ring:
+        valid = valid | (pos[:, None].long() >= W)
+    keys = int(valid.sum().item())
+    nbytes = (q.numel() + 2 * keys * KV * hd) * q.element_size() + pos.numel() * 4 \
+        + B * H * (hd + 2) * 4
+    b_ms, b_by = bound_ms(nbytes, 4.0 * hd * keys * H, dname)
+    qt = q[:, :, None]
+    kt, vt = (c.transpose(1, 2).repeat_interleave(H // KV, 1) for c in (kc, vc))
+    bias = torch.zeros((B, H, 1, W), dtype=q.dtype, device=q.device)
+    bias.masked_fill_(~valid[:, None, None, :], float("-inf"))
+    lib = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731
+        qt, kt, vt, bias, True)
+    out, lse = lib()[:2]
+    acc, m, l = dec.decode_attention_partial_plain(q, kc, vc, pos, ring=ring)
+    lib_err = max((out[:, :, 0].float() - acc / l[..., None]).abs().max().item(),
+                  (lse[:, :, 0].float() - (m + torch.log(l))).abs().max().item())
+    kern = lambda: dec.decode_attention_partial(q, kc, vc, pos, ring=ring)  # noqa: E731
+    plain = lambda: dec.decode_attention_partial_plain(q, kc, vc, pos, ring=ring)  # noqa: E731
+    route = dec.decode_route(B, KV, W, hd, q.element_size())[0]
+    return _timings(kern, dec.decode_attention_partial, plain, lib,
+                    f"B{B} W{W} H{H} KV{KV} hd{hd}, {route}, one range", err, lib_err, b_ms, b_by,
+                    library="_scaled_dot_product_efficient_attention with its logsumexp")
 
 
 def _check_train_attention():
@@ -1271,6 +1391,7 @@ def _wrappers():
     from repro_torch.kernels import mamba_scan_bwd as msb
     from repro_torch.kernels import moe_gmm
     return {"flash_attention": fa.flash_attention, "decode_attention": dec.decode_attention,
+            "decode_attention_partial": dec.decode_attention_partial,
             "mamba_scan": ms.mamba_scan, "grouped_matmul": moe_gmm.grouped_matmul,
             "flash_attention_bwd": fb.flash_attention_bwd,
             "mamba_scan_bwd": msb.mamba_scan_bwd,
@@ -1770,11 +1891,11 @@ def _attention_kinds():
     def tally(key):
         kinds[key] = kinds.get(key, 0) + 1
 
-    def flash(q, k, v, *, causal=True, window=0):
+    def flash(q, k, v, *, causal=True, window=0, block=512):
         if q.is_cuda:
             mask = f"window {window}" if window else "causal" if causal else "bidirectional"
             tally(f"B1 hd{q.shape[-1]} {mask}")
-        return flash0(q, k, v, causal=causal, window=window)
+        return flash0(q, k, v, causal=causal, window=window, block=block)
 
     def decode(q, k_cache, v_cache, positions, *, ring=False):
         if q.is_cuda:
@@ -2255,7 +2376,8 @@ MESH_ARGS = ["--arch", "train_100m", "--seq", "1024", "--batch", "8", "--accum",
 # phase 7's train cuts: (arch, layers, S) at full width, f32, 2 x S tokens
 MESH_CUTS = (("falcon_mamba_7b", 2, 128), ("moonshot_v1_16b", 1, 64))
 MESH_KERNELS = ("flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd",
-                "grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")
+                "grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw",
+                "decode_attention_partial")
 
 
 def phase_train_mesh():
@@ -2309,6 +2431,7 @@ def phase_train_mesh():
         _mesh_cut(arch, layers, S, counted)
         gc.collect()
         torch.cuda.empty_cache()
+    _mesh_decode(counted)
     launches = {n: counts[n] for n in MESH_KERNELS}
     print(f"[mesh] kernel launches on the mesh path {launches}")
     check(all(launches.values()), f"a kernel of the mesh path was not launched: {launches}")
@@ -2372,6 +2495,57 @@ def _mesh_cut(arch, layers, S, counted, steps=3):
     err = max((last["mesh"][n] - last["plain"][n]).abs().max().item() for n in last["plain"])
     print(f"[mesh]   parameters after {steps} steps: mesh vs plain max_abs_err {err:.3e}")
     check(np.isfinite(err) and err <= TRAIN_TOL, f"{arch} parameters mesh vs plain {err}")
+
+
+def _mesh_decode(counted, B=4, prompt=16, W=64, steps=4):
+    """``tiny_lm`` at full width in float32 on the ``(1, 1)`` mesh, its
+    cache's slots split over ``model`` (one rank: every slot its range):
+    ``LM.decode_step`` after a prefill, the attention on B2's partial route
+    (flash-decoding across the slot ranks, here one), against the same
+    steps on plain tensors (B2's whole call): logits within 2e-3, greedy
+    tokens equal, B2's partial route launched once a layer a step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import NamedSharding, place
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import LM
+
+    cfg = replace(get_config("tiny_lm"), dtype="float32")
+    lm = LM(cfg, device="cuda", seed=5)
+    mesh = make_local_mesh(model_axis=1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, prompt),
+                           generator=torch.Generator().manual_seed(5)).cuda()
+    with torch.no_grad():
+        logits, pre = lm.prefill({"tokens": tokens})
+        cache = lm.init_cache(B, W)
+        for sb, sp in zip(cache["slots"], pre["slots"]):
+            for n, t in sb.items():
+                t[:, :, :prompt].copy_(sp[n])
+        params = {n: place(p.detach(), NamedSharding(mesh, ())) for n, p in lm.params().items()}
+        dcache = {"slots": [{n: place(t.clone(), NamedSharding(mesh, (None, None, "model")))
+                             for n, t in sl.items()} for sl in cache["slots"]]}
+        placements = sorted({repr(tuple(t.placements)) for sl in dcache["slots"]
+                             for t in sl.values()})
+        tok, err, n = logits.argmax(-1), 0.0, 0
+        for i in range(steps):
+            batch = {"token": tok, "pos": torch.full((B,), prompt + i, device="cuda")}
+            want, cache = lm.decode_step(cache, batch)
+            # counted() sets every count to 0 before the step: read this step's
+            got, dcache = counted(lambda: lm.decode_step(dcache, batch, params=params))
+            n += dec.decode_attention_partial.launches
+            got = got.full_tensor() if hasattr(got, "full_tensor") else got
+            err = max(err, (got - want).abs().max().item())
+            check(torch.equal(got.argmax(-1), want.argmax(-1)),
+                  f"mesh decode step {i}: greedy tokens differ")
+            tok = want.argmax(-1)
+    print(f"[mesh] tiny_lm f32 decode on the mesh, cache {placements} (slots on model): "
+          f"{steps} steps against the plain path, logits max_abs_err {err:.3e} (tol "
+          f"{LOGIT_TOL:g}); B2's partial route launched {n} times "
+          f"({cfg.num_layers} layers x {steps} steps)")
+    check(err <= LOGIT_TOL and n == cfg.num_layers * steps,
+          f"mesh decode: err {err}, partial launches {n}")
 
 
 def _mesh_steady(warm=2, timed=5, profiled=3):
@@ -3002,6 +3176,10 @@ def main() -> int:
             ("decode_attention", DECODE_LINE, "bfloat16",
              "src/repro/kernels/decode_attention.py:84",
              "src/repro_torch/csrc/decode_attention.cu"),
+            # B2's slot-range route: the mesh path's decode over split slots
+            ("decode_attention_partial", DECODE_PARTIAL_LINE, "bfloat16",
+             "src/repro/kernels/decode_attention.py:84",
+             "src/repro_torch/csrc/decode_attention.cu"),
             ("mamba_scan", MAMBA_LINE, "float32", "src/repro/kernels/mamba_scan.py:68",
              "src/repro_torch/csrc/mamba_scan.cu"),
             ("grouped_matmul", GMM_LINE, "bfloat16", "src/repro/kernels/moe_gmm.py:71",
@@ -3017,10 +3195,12 @@ def main() -> int:
             ("grouped_matmul_dw", GMM_BWD_LINE, "bfloat16", "src/repro/models/moe.py:88",
              "src/repro_torch/csrc/moe_gmm_bwd.cu")):
         r = rows[(name, label, dname)]
+        # the slot-range route runs on the mesh path only (phase 14's decode):
+        # none on the main path
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": launches.get(name, 0),
                         "launches_mesh": mesh_launches[name],
-                        "launches_pod_sync": pod_launches[name],
+                        "launches_pod_sync": pod_launches.get(name, 0),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

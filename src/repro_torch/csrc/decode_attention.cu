@@ -12,6 +12,13 @@
 // valid_len = min(pos + 1, W), and W for a ring cache once pos >= W; keys at
 // or past it are never read.
 //
+// A cache whose slots are split over ranks (flash-decoding across devices):
+// decode_attention_partial takes one rank's range of slots, W of the W_total
+// of the whole cache from slot w_off on, masks them by their global index,
+// and writes the range's unnormalized partial (acc [B,H,HD], (m, l) [B,H,2])
+// for the ranks to combine by a max and two sums. A range with no valid slot
+// gives m = -inf, l = 0, acc = 0.
+//
 // Bound: every cache row below valid_len is read once, so the kernel is bound
 // by bytes (HBM or L2); at the serving shapes (W <= 256, a few KB a block) it
 // is bound by latency: the chain pos -> K/V loads -> scores -> combine. The
@@ -38,6 +45,12 @@ __device__ __forceinline__ int valid_len(int pos, int W, int ring) {
   return min(pos + 1, W);
 }
 
+// the valid slots of the range [w_off, w_off + W) of a cache of W_total slots,
+// counted from w_off: the global valid length clamped to the range
+__device__ __forceinline__ int range_valid(int pos, int W, int W_total, int w_off, int ring) {
+  return min(max(valid_len(pos, W_total, ring) - w_off, 0), W);
+}
+
 constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
 
 // How a cache row of HD elements of T is spread over a warp: 16-byte vectors
@@ -52,15 +65,17 @@ template <typename T, int HD> struct Rows {
   static_assert(HD % kVec == 0 && kNV % kVPL == 0 && kNV <= kLPK * kVPL, "row layout");
 };
 
-// grid (nsplit, KV * head groups, B). nsplit == 1: out [B,H,HD] directly.
-// Otherwise partials: acc [B,H,nsplit,HD], ml [B,H,nsplit,2] (m, l).
+// grid (nsplit, KV * head groups, B). nsplit == 1 and not partial: out
+// [B,H,HD] directly. Otherwise partials: acc [B,H,nsplit,HD], ml
+// [B,H,nsplit,2] (m, l; m = -inf where a block saw no valid slot).
 template <typename T, int HD, int GB>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
               const int* __restrict__ pos, T* __restrict__ out, float* __restrict__ part_acc,
               float* __restrict__ part_ml, int W, int H, int KV, int chunk, int nsplit,
               int64_t sqb, int64_t sqh, int64_t skb, int64_t skw, int64_t skh,
-              int64_t svb, int64_t svw, int64_t svh, int ring, float scale) {
+              int64_t svb, int64_t svw, int64_t svh, int ring, float scale, int w_off,
+              int W_total, int partial) {
   using R = Rows<T, HD>;
   // U: the steps of a round, whose K/V loads a warp has in flight at once
   // (fewer where the heads' q and o take the registers)
@@ -111,7 +126,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   // one launch: the first round's rows are loaded before pos[b] returns, and
   // those at or past valid_len are masked after
   if (nsplit == 1) load(k0, W);
-  const int vl = valid_len(pos[b], W, ring);
+  const int vl = range_valid(pos[b], W, W_total, w_off, ring);
   if (k0 >= vl && nsplit > 1) return;               // the combine reads chunks below vl only
   const int k1 = min(k0 + chunk, vl);                // vl < 1 (pos < 0): no key, out = 0
 
@@ -246,7 +261,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
       for (int e = 0; e < R::kVec; ++e) acc[e] = fmaf(ow[e], sw, acc[e]);
     }
     const int64_t bh = static_cast<int64_t>(b) * H + h0 + g;
-    if (nsplit == 1) {
+    if (nsplit == 1 && !partial) {
       const float inv = 1.f / fmaxf(L, 1e-30f);
 #pragma unroll
       for (int e = 0; e < R::kVec; ++e) acc[e] *= inv;
@@ -257,7 +272,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
       for (int e = 0; e < R::kVec; e += 4)
         *reinterpret_cast<float4*>(pa + e) = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
       if (d0 == 0) {
-        part_ml[(bh * nsplit + split) * 2] = M;
+        part_ml[(bh * nsplit + split) * 2] = L > 0.f ? M : -INFINITY;
         part_ml[(bh * nsplit + split) * 2 + 1] = L;
       }
     }
@@ -265,16 +280,19 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
 }
 
 // the split route's second pass: one block per (h, b), one thread per output
-// dimension, rescaling and summing the partials of the chunks below valid_len
+// dimension, rescaling and summing the partials of the chunks below valid_len;
+// partial: the sums unnormalized into acc_out [B,H,HD] and (m, l) into
+// ml_out [B,H,2] (m = -inf where the range has no valid slot)
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
 decode_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
                       const int* __restrict__ pos, T* __restrict__ out, int W, int H, int chunk,
-                      int nsplit, int ring) {
+                      int nsplit, int ring, int w_off, int W_total, float* __restrict__ acc_out,
+                      float* __restrict__ ml_out) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int d = threadIdx.x;
-  const int nv = (valid_len(pos[b], W, ring) + chunk - 1) / chunk;
+  const int nv = (range_valid(pos[b], W, W_total, w_off, ring) + chunk - 1) / chunk;
   const int64_t bh = static_cast<int64_t>(b) * H + h;
   const float* ml = part_ml + bh * nsplit * 2;
   const float* acc = part_acc + bh * nsplit * HD;
@@ -286,14 +304,29 @@ decode_combine_kernel(const float* __restrict__ part_acc, const float* __restric
     L = fmaf(ml[c * 2 + 1], w, L);
     A = fmaf(acc[c * HD + d], w, A);
   }
+  if (acc_out != nullptr) {
+    acc_out[bh * HD + d] = A;
+    if (d == 0) {
+      ml_out[bh * 2] = L > 0.f ? M : -INFINITY;
+      ml_out[bh * 2 + 1] = L;
+    }
+    return;
+  }
   out[bh * HD + d] = rt::from_float<T>(A / fmaxf(L, 1e-30f));
 }
+
+// a call's slot range and, for the partial entry point, its outputs
+struct Range {
+  int w_off, W_total;
+  float* acc_out;    // null: the whole cache, out normalized
+  float* ml_out;
+};
 
 template <typename T, int HD, int GB>
 int launch(const void* q, const void* kc, const void* vc, const int* pos, void* out,
            float* part_acc, float* part_ml, int B, int W, int H, int KV, int chunk,
            int64_t sqb, int64_t sqh, int64_t skb, int64_t skw, int64_t skh, int64_t svb,
-           int64_t svw, int64_t svh, int ring, float scale, cudaStream_t stream) {
+           int64_t svw, int64_t svh, int ring, float scale, Range rg, cudaStream_t stream) {
   const int ngroups = (H / KV + GB - 1) / GB;
   const int nsplit = (W + chunk - 1) / chunk;
   constexpr int smem = kWarps * GB * (HD + 2) * static_cast<int>(sizeof(float));
@@ -312,14 +345,19 @@ int launch(const void* q, const void* kc, const void* vc, const int* pos, void* 
       attr_set |= bit;
     }
   }
+  const int partial = rg.acc_out != nullptr;
+  // one launch of a partial: its block writes the range's partial directly
+  float* pa = partial && nsplit == 1 ? rg.acc_out : part_acc;
+  float* pm = partial && nsplit == 1 ? rg.ml_out : part_ml;
   kernel<<<dim3(nsplit, KV * ngroups, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), pos,
-      static_cast<T*>(out), part_acc, part_ml, W, H, KV, chunk, nsplit, sqb, sqh, skb, skw, skh,
-      svb, svw, svh, ring, scale);
+      static_cast<T*>(out), pa, pm, W, H, KV, chunk, nsplit, sqb, sqh, skb, skw, skh,
+      svb, svw, svh, ring, scale, rg.w_off, rg.W_total, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
   decode_combine_kernel<T, HD><<<dim3(H, B), HD, 0, stream>>>(
-      part_acc, part_ml, pos, static_cast<T*>(out), W, H, chunk, nsplit, ring);
+      part_acc, part_ml, pos, static_cast<T*>(out), W, H, chunk, nsplit, ring, rg.w_off,
+      rg.W_total, rg.acc_out, rg.ml_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -328,11 +366,11 @@ template <typename T, int HD>
 int dispatch_g(const void* q, const void* kc, const void* vc, const int* pos, void* out,
                float* part_acc, float* part_ml, int B, int W, int H, int KV, int chunk,
                int64_t sqb, int64_t sqh, int64_t skb, int64_t skw, int64_t skh, int64_t svb,
-               int64_t svw, int64_t svh, int ring, float scale, cudaStream_t st) {
+               int64_t svw, int64_t svh, int ring, float scale, Range rg, cudaStream_t st) {
   const int G = H / KV;
 #define RT_DECODE_G(GB)                                                                      \
   return launch<T, HD, GB>(q, kc, vc, pos, out, part_acc, part_ml, B, W, H, KV, chunk, sqb,  \
-                           sqh, skb, skw, skh, svb, svw, svh, ring, scale, st);
+                           sqh, skb, skw, skh, svb, svw, svh, ring, scale, rg, st);
   if (G == 1) RT_DECODE_G(1)
   if (G == 2) RT_DECODE_G(2)
   if (G <= 4) RT_DECODE_G(4)
@@ -344,11 +382,11 @@ template <typename T>
 int dispatch_hd(int hd, const void* q, const void* kc, const void* vc, const int* pos, void* out,
                 float* part_acc, float* part_ml, int B, int W, int H, int KV, int chunk,
                 int64_t sqb, int64_t sqh, int64_t skb, int64_t skw, int64_t skh, int64_t svb,
-                int64_t svw, int64_t svh, int ring, float scale, cudaStream_t st) {
+                int64_t svw, int64_t svh, int ring, float scale, Range rg, cudaStream_t st) {
 #define RT_DECODE_CASE(D)                                                                    \
   case D:                                                                                    \
     return dispatch_g<T, D>(q, kc, vc, pos, out, part_acc, part_ml, B, W, H, KV, chunk, sqb, \
-                            sqh, skb, skw, skh, svb, svw, svh, ring, scale, st);
+                            sqh, skb, skw, skh, svb, svw, svh, ring, scale, rg, st);
   switch (hd) {
     RT_DECODE_CASE(16)
     RT_DECODE_CASE(32)
@@ -387,6 +425,28 @@ extern "C" int decode_keys_per_block_step(int dtype, int hd) {
   return 0;
 }
 
+namespace {
+
+int run(const void* q, const void* kc, const void* vc, const void* pos, void* out,
+        void* part_acc, void* part_ml, int dtype, int B, int W, int H, int KV, int hd, int chunk,
+        int64_t sqb, int64_t sqh, int64_t skb, int64_t skw, int64_t skh, int64_t svb,
+        int64_t svw, int64_t svh, int ring, float scale, Range rg, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+  if (chunk > W) chunk = W;
+  if (dtype == rt::kFloat32)
+    return dispatch_hd<float>(hd, q, kc, vc, p, out, pa, pm, B, W, H, KV, chunk, sqb, sqh, skb,
+                              skw, skh, svb, svw, svh, ring, scale, rg, st);
+  if (dtype == rt::kBFloat16)
+    return dispatch_hd<__nv_bfloat16>(hd, q, kc, vc, p, out, pa, pm, B, W, H, KV, chunk, sqb,
+                                      sqh, skb, skw, skh, svb, svw, svh, ring, scale, rg, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
 // Plain C entry point, loaded with ctypes. Strides are in elements; the head
 // dimension must be contiguous and every row of q and the caches 16-byte
 // aligned; positions are int32. chunk: keys a block takes (>= W: one launch,
@@ -400,16 +460,26 @@ extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* v
                                     int64_t skb, int64_t skw, int64_t skh,
                                     int64_t svb, int64_t svw, int64_t svh,
                                     int ring, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_ml);
-  if (chunk > W) chunk = W;
-  if (dtype == rt::kFloat32)
-    return dispatch_hd<float>(hd, q, kc, vc, p, out, pa, pm, B, W, H, KV, chunk, sqb, sqh, skb,
-                              skw, skh, svb, svw, svh, ring, scale, st);
-  if (dtype == rt::kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, kc, vc, p, out, pa, pm, B, W, H, KV, chunk, sqb,
-                                      sqh, skb, skw, skh, svb, svw, svh, ring, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, kc, vc, pos, out, part_acc, part_ml, dtype, B, W, H, KV, hd, chunk, sqb, sqh,
+             skb, skw, skh, svb, svw, svh, ring, scale, Range{0, W, nullptr, nullptr}, stream);
+}
+
+// The partial of a range of slots: the caches hold slots [w_off, w_off + W)
+// of a cache of W_total; acc_out [B,H,hd] and ml_out [B,H,2] float32 receive
+// the unnormalized sum of p v, and (m, l), each p = exp(s - m) over the
+// range's valid slots. chunk, part_acc and part_ml as above (the split route's
+// per-chunk partials, summed into acc_out and ml_out by its second launch).
+extern "C" int decode_attention_partial(const void* q, const void* kc, const void* vc,
+                                        const void* pos, void* acc_out, void* ml_out,
+                                        void* part_acc, void* part_ml, int dtype, int B, int W,
+                                        int H, int KV, int hd, int chunk, int64_t sqb,
+                                        int64_t sqh, int64_t skb, int64_t skw, int64_t skh,
+                                        int64_t svb, int64_t svw, int64_t svh, int ring,
+                                        float scale, int w_off, int W_total, void* stream) {
+  if (acc_out == nullptr || ml_out == nullptr || w_off < 0 || w_off + W > W_total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, kc, vc, pos, nullptr, part_acc, part_ml, dtype, B, W, H, KV, hd, chunk, sqb,
+             sqh, skb, skw, skh, svb, svw, svh, ring, scale,
+             Range{w_off, W_total, static_cast<float*>(acc_out), static_cast<float*>(ml_out)},
+             stream);
 }

@@ -317,8 +317,9 @@ def local_ranges(shape: Sequence[int], mesh, placements, coord: Sequence[int]
                  ) -> Tuple[Tuple[int, int], ...]:
     """The ``[start, stop)`` of every dim that the rank at mesh coordinate
     ``coord`` holds. A dim sharded over several mesh dims is split by them in
-    mesh order, the first outermost (DTensor's order and JAX's). Every shard
-    must be even: the rules shard only dims that their axes divide."""
+    mesh order, the first outermost (DTensor's order and JAX's), each split
+    as DTensor splits a dim, even or not (``torch.chunk``: parts of
+    ``ceil(n / size)``, the last ones shorter or empty)."""
     from torch.distributed.tensor import Shard
     sizes = mesh_shape(mesh).sizes
     ranges = []
@@ -326,10 +327,9 @@ def local_ranges(shape: Sequence[int], mesh, placements, coord: Sequence[int]
         start, length = 0, n
         for i, p in enumerate(placements):
             if isinstance(p, Shard) and p.dim == d:
-                if length % sizes[i]:
-                    raise ValueError(f"dim {d} of {tuple(shape)} does not split {sizes[i]} ways")
-                length //= sizes[i]
-                start += coord[i] * length
+                part = -(-length // sizes[i])
+                lo = min(coord[i] * part, length)
+                start, length = start + lo, min(part, length - lo)
         ranges.append((start, start + length))
     return tuple(ranges)
 

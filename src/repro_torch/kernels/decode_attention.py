@@ -24,11 +24,22 @@ aligned rows and every head dim of the JAX package's configs
 ``impl="ref"`` in plain PyTorch: the CPU path and the kernel's yardstick of
 correctness. :func:`decode_attention` launches the kernel and counts its
 launches in ``decode_attention.launches``.
+
+A cache whose slots are split over ranks (``act_kv_seq`` on a mesh) is
+attended by flash-decoding across them: each rank takes its own range of
+slots, ``[offset, offset + W)`` of the cache's ``total``, and returns its
+unnormalized partial ``(acc, m, l)``; the ranks combine the partials by a
+max and two sums (:func:`combine_partials`, across ranks in
+``kernels.ops``). :func:`decode_attention_partial` is B2 on such a range
+(its routes, the slots masked by their global index; counted in
+``decode_attention_partial.launches``), :func:`decode_attention_partial_plain`
+its plain version. A range with no valid slot gives ``m = -inf``, ``l = 0``,
+``acc = 0``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,6 +75,47 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def decode_attention_partial_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                                   v_cache: torch.Tensor, positions: torch.Tensor, *,
+                                   ring: bool = False, offset: int = 0,
+                                   total: Optional[int] = None):
+    """The partial softmax of q [B,H,hd] over the cache slots ``[offset,
+    offset + W)`` of ``total`` (caches [B,W,KV,hd] hold that range): (acc
+    [B,H,hd], m [B,H], l [B,H]), float32, acc the sum of ``p v`` and l of
+    ``p``, ``p = exp(s - m)`` over the range's valid slots (global slot
+    ``<= pos``; every slot of a wrapped ring), rounded to the cache's type
+    before its product with v as in :func:`decode_attention_plain`."""
+    B, W, KV, hd = k_cache.shape
+    H = q.shape[1]
+    G = H // KV
+    total = W if total is None else total
+    s = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, KV, G, hd).float(),
+                     k_cache.float()) * hd ** -0.5
+    slot = offset + torch.arange(W, device=q.device)
+    pos = positions.to(q.device)[:, None]
+    valid = slot[None, :] <= pos
+    if ring:
+        valid = valid | (pos >= total)
+    valid = valid[:, None, None, :]
+    m = torch.where(valid, s, -torch.inf).amax(-1)                    # [B,KV,G]
+    p = torch.where(valid, torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None]), 0.0)
+    acc = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return acc.reshape(B, H, hd), m.reshape(B, H), p.sum(-1).reshape(B, H)
+
+
+def combine_partials(parts, dtype: torch.dtype) -> torch.Tensor:
+    """The attention output [B,H,hd] in ``dtype`` from the partials ``(acc,
+    m, l)`` of ranges that cover the cache: the largest m, each range
+    scaled by ``exp(m - max)`` (0 for a range without a valid slot)."""
+    M = torch.stack([m for _, m, _ in parts]).amax(0)
+    acc = l_sum = 0.0
+    for a, m, l in parts:
+        w = torch.where(torch.isinf(m), 0.0, torch.exp(m - M))
+        acc = acc + a * w[..., None]
+        l_sum = l_sum + l * w
+    return (acc / torch.clamp_min(l_sum, 1e-30)[..., None]).to(dtype)
+
+
 def split_chunk(B: int, KV: int, W: int) -> int:
     """Keys per chunk of pass 1: halve from 64 (down to 16) until the grid
     of chunks x kv heads x sequences gives every SM two blocks."""
@@ -92,19 +144,24 @@ def decode_route(B: int, KV: int, W: int, hd: int, itemsize: int) -> Tuple[str, 
     return "split", split_chunk(B, KV, W)
 
 
-_FN = None
+_FN = {}
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        fn = build.load("decode_attention").decode_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                       + [ctypes.c_int64] * 8
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+def _kernel(entry: str = "decode_attention_fwd"):
+    if entry not in _FN:
+        fn = getattr(build.load("decode_attention"), entry)
+        if entry == "decode_attention_fwd":
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                           + [ctypes.c_int64] * 8
+                           + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        else:
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                           + [ctypes.c_int64] * 8
+                           + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FN[entry] = fn
+    return _FN[entry]
 
 
 def _check(q, k_cache, v_cache, positions):
@@ -155,7 +212,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     pos = positions if positions.dtype == torch.int32 else positions.to(torch.int32)
     pos = pos.contiguous()
     with torch.cuda.device(q.device):
-        err = _kernel()(
+        err = _kernel("decode_attention_fwd")(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
             out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
@@ -172,3 +229,49 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                             positions: torch.Tensor, *, ring: bool = False, offset: int = 0,
+                             total: Optional[int] = None):
+    """Launch kernel B2 on a range of slots of CUDA caches (see
+    :func:`decode_attention_partial_plain`): (acc [B,H,hd], m [B,H], l
+    [B,H]), float32. The route as :func:`decode_route` picks it for the
+    range's W; the split route's second launch sums its chunks into the
+    range's partial."""
+    _check(q, k_cache, v_cache, positions)
+    check_capability(q.device)
+    B, W, KV, hd = k_cache.shape
+    H = q.shape[1]
+    total = W if total is None else total
+    if offset < 0 or offset + W > total:
+        raise ValueError(f"slots [{offset}, {offset + W}) are not inside a cache of {total}")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((B, H, hd), **f32)
+    ml = torch.empty((B, H, 2), **f32)
+    route, chunk = decode_route(B, KV, W, hd, q.element_size())
+    part_acc = part_ml = None
+    if route == "split":
+        nsplit = -(-W // chunk)
+        part_acc = torch.empty(B * H * nsplit * hd, **f32)
+        part_ml = torch.empty(B * H * nsplit * 2, **f32)
+    pos = positions if positions.dtype == torch.int32 else positions.to(torch.int32)
+    pos = pos.contiguous()
+    with torch.cuda.device(q.device):
+        err = _kernel("decode_attention_partial")(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+            acc.data_ptr(), ml.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            _DTYPES[q.dtype], B, W, H, KV, hd, chunk,
+            q.stride(0), q.stride(1),
+            k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+            v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+            int(ring), hd ** -0.5, offset, total,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_attention_partial kernel launch failed with CUDA error {err}")
+    decode_attention_partial.launches += 1
+    return acc, ml[..., 0], ml[..., 1]
+
+
+decode_attention_partial.launches = 0

@@ -86,32 +86,58 @@ def _setup(q, k, block, window, causal):
             _block_pairs(nb, nb, causal=causal, window_blocks=wb).tolist(), hd ** -0.5)
 
 
+def _masks(block: int, causal: bool, window: int, device):
+    """The mask of a (q block, kv block) pair by the blocks' offset ``i - j``
+    (None where every score of the pair is visible), each made once."""
+    made = {}
+
+    def mask(i: int, j: int):
+        off = i - j
+        last = off * block + block - 1                 # the pair's largest q - k
+        if (not causal or off > 0) and (not window or last < window):
+            return None
+        if off not in made:
+            made[off] = _pair_mask(off, 0, block, causal, window, device)
+        return made[off]
+    return mask
+
+
 def attend_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                      window: int = 0, block: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """The blocked flash forward over the contributing block pairs (the JAX
     package's ``_attend_fwd_impl``). q [B,S,H,hd]; k,v [B,S,KV,hd]; S a
     multiple of ``block``. Returns (out [B,S,H,hd] in q's type, lse
-    [B,S,KV,G] float32)."""
+    [B,S,KV,G] float32). The blocks are laid out once (a q block's G heads
+    as ``G * block`` rows of its kv head), so that a pair is two batched
+    matmuls and the online softmax's few elementwise ops, its mask made
+    once for each offset that needs one."""
     B, S, H, hd, KV, G, nb, pairs, scale = _setup(q, k, block, window, causal)
-    qb = q.reshape(B, nb, block, KV, G, hd)
-    kb = k.reshape(B, nb, block, KV, hd)
-    vb = v.reshape(B, nb, block, KV, hd)
-    acc = [torch.zeros((B, block, KV, G, hd), device=q.device) for _ in range(nb)]
-    m = [torch.full((B, block, KV, G), NEG_INF, device=q.device) for _ in range(nb)]
-    l = [torch.zeros((B, block, KV, G), device=q.device) for _ in range(nb)]
+    R, BK = G * block, B * KV                      # a block's rows: its q rows of each head
+    qb = (q.float().reshape(B, nb, block, KV, G, hd).permute(1, 0, 3, 4, 2, 5)
+          .reshape(nb, BK, R, hd))
+    kb = k.float().reshape(B, nb, block, KV, hd).permute(1, 0, 3, 4, 2).reshape(nb, BK, hd, block)
+    vb = v.float().reshape(B, nb, block, KV, hd).permute(1, 0, 3, 2, 4).reshape(nb, BK, block, hd)
+    pair_mask = _masks(block, causal, window, q.device)
+    acc = [torch.zeros((BK, R, hd), device=q.device) for _ in range(nb)]
+    m = [torch.full((BK, R), NEG_INF, device=q.device) for _ in range(nb)]
+    l = [torch.zeros((BK, R), device=q.device) for _ in range(nb)]
     for i, j in pairs:
-        s = torch.einsum("bqkgd,btkd->bkgqt", qb[:, i].float(), kb[:, j].float()) * scale
-        s = torch.where(_pair_mask(i, j, block, causal, window, q.device), s, NEG_INF)
-        m_new = torch.maximum(m[i], torch.movedim(s.amax(-1), -1, 1))   # [B,bq,KV,G]
-        p = torch.exp(s - torch.movedim(m_new, 1, -1)[..., None])      # [B,KV,G,bq,bk]
+        s = torch.bmm(qb[i], kb[j]) * scale                          # [B KV, R, bk]
+        mk = pair_mask(i, j)
+        if mk is not None:
+            s = torch.where(mk.repeat(G, 1), s, NEG_INF)
+        m_new = torch.maximum(m[i], s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m[i] - m_new)
-        l[i] = l[i] * corr + torch.movedim(p.sum(-1), -1, 1)
-        pv = torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype).float(), vb[:, j].float())
+        l[i] = l[i] * corr + p.sum(-1)
+        pv = torch.bmm(p.to(v.dtype).float(), vb[j])                 # [B KV, R, hd]
         acc[i] = acc[i] * corr[..., None] + pv
         m[i] = m_new
-    lc = torch.clamp_min(torch.stack(l, 1), 1e-30)
-    out = (torch.stack(acc, 1) / lc[..., None]).reshape(B, S, H, hd).to(q.dtype)
-    return out, (torch.stack(m, 1) + torch.log(lc)).reshape(B, S, KV, G)
+    lc = torch.clamp_min(torch.stack(l, 1), 1e-30).reshape(B, KV, nb, G, block)
+    out = torch.stack(acc, 1).reshape(B, KV, nb, G, block, hd) / lc[..., None]
+    lse = torch.stack(m, 1).reshape(B, KV, nb, G, block) + torch.log(lc)
+    return (out.permute(0, 2, 4, 1, 3, 5).reshape(B, S, H, hd).to(q.dtype),
+            lse.permute(0, 2, 4, 1, 3).reshape(B, S, KV, G))
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

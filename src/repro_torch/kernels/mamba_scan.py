@@ -28,20 +28,23 @@ slices of one projection), N in {4, 8, 16, 32}, and float32 A, D and state.
 
 :func:`mamba_scan_plain` is the JAX package's sequential oracle
 (``kernels/ref.py::mamba_scan_ref``) in plain PyTorch, with ``h0``/``h_S``
-added: the CPU path and the kernel's yardstick of correctness.
-:func:`mamba_scan` launches the kernel and counts its launches in
-``mamba_scan.launches``. Both return ``(y, h_S)``: y in x's type, h_S in
-float32.
+added: the kernel's yardstick of correctness. :func:`mamba_scan_chunked`
+is the JAX model's chunked scan (``models/mamba.py::_ssm_chunk_scan``):
+the CPU path, some 100 ops and 2 x 256 combines a chunk of 256 steps
+where the sequential form takes some 15 ops a step. :func:`mamba_scan` launches the kernel and
+counts its launches in ``mamba_scan.launches``. All return ``(y, h_S)``: y
+in x's type, h_S in float32.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import check_capability
-from repro_torch.kernels import build
+from repro_torch.kernels import block_of, build
 
 STATE_DIMS = (4, 8, 16, 32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,6 +84,77 @@ def mamba_scan_plain(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor, C: torc
     y = torch.stack(ys, 1) + x.float() * D.float()
     if chunk:
         return y.to(x.dtype), h, torch.stack(states, 1)
+    return y.to(x.dtype), h
+
+
+SCAN_BLOCK = 256           # the JAX model's chunk (``mamba_forward(chunk=256)``)
+
+
+def associative_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefix of the pairs ``(a, b)`` along dim 1 under ``combine((al, bl),
+    (ar, br)) = (al ar, bl ar + br)``, work-efficient as
+    ``jax.lax.associative_scan``'s odd-even recursion is (here Brent-Kung):
+    an up-sweep of log2(n) levels in which
+    the last pair of every block of 2s takes in the last of its first half,
+    then a down-sweep that hands each block's prefix to the middle of the
+    next. About 2n combines in all, in place on copies (n padded to a power
+    of two with the identity ``(1, 0)``); six ops a level."""
+    n = a.shape[1]
+    p = 1 << (n - 1).bit_length()
+    pad = (0, 0) * (a.dim() - 2) + (0, p - n)
+    a, b = F.pad(a, pad, value=1.0), F.pad(b, pad)                    # copies
+    s = 1
+    while s < p:
+        t, f = slice(2 * s - 1, p, 2 * s), slice(s - 1, p, 2 * s)
+        b[:, t].addcmul_(b[:, f], a[:, t])
+        a[:, t].mul_(a[:, f])
+        s *= 2
+    s = p // 4
+    while s:
+        t, f = slice(3 * s - 1, p, 2 * s), slice(2 * s - 1, p - s, 2 * s)
+        b[:, t].addcmul_(b[:, f], a[:, t])
+        a[:, t].mul_(a[:, f])
+        s //= 2
+    return a[:, :n], b[:, :n]
+
+
+def mamba_scan_chunked(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                       A: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                       chunk: Optional[int] = None, block: int = SCAN_BLOCK):
+    """The JAX model's chunked scan (``repro/models/mamba.py::_ssm_chunk_scan``)
+    in plain PyTorch, the CPU path: a loop over chunks of ``block_of(S,
+    block)`` steps carrying the float32 state, inside each the work-efficient
+    :func:`associative_scan` of ``(exp(dt A), dt x B)``, then ``h_all = aa h
+    + bb`` and ``y = sum_n h_all C + D x``. The largest tensor it holds is
+    ``[Bt, block, DI, N]``. Same arguments and results as
+    :func:`mamba_scan_plain`, bx rounded to the inputs' type as there; with
+    ``chunk`` the states at the start of every ``chunk`` steps, third."""
+    Bt, S, DI = x.shape
+    c = block_of(S, block)
+    A32 = A.float()
+    dt32 = dt.float()
+    bx = (dt * x).float()
+    B32, C32 = B.float(), C.float()
+    if h0 is None:
+        h = torch.zeros((Bt, DI, A.shape[1]), dtype=torch.float32, device=x.device)
+    else:
+        h = h0.float()
+    if chunk and c < S and c % chunk:
+        raise ValueError(f"the states' chunk {chunk} must divide the scan's block {c}")
+    ys, states = [], []
+    for c0 in range(0, S, c):
+        sl = slice(c0, c0 + c)
+        a = torch.exp(dt32[:, sl, :, None] * A32)                     # [Bt, c, DI, N]
+        aa, bb = associative_scan(a, bx[:, sl, :, None] * B32[:, sl, None, :])
+        h_all = aa * h[:, None] + bb
+        if chunk:
+            # the states entering steps c0, c0 + chunk, ...: h, then h_all[k chunk - 1]
+            states += [h[:, None], h_all[:, chunk - 1:c - 1:chunk]]
+        ys.append((h_all * C32[:, sl, None, :]).sum(-1))
+        h = h_all[:, -1]
+    y = torch.cat(ys, 1) + x.float() * D.float()
+    if chunk:
+        return y.to(x.dtype), h, torch.cat(states, 1)
     return y.to(x.dtype), h
 
 

@@ -40,9 +40,10 @@ same bits. It takes float32 only (the model casts dt, x, B and C to float32
 before the scan) and N in {4, 8, 16, 32}.
 
 :func:`mamba_scan_bwd_plain` is the same reverse recurrence in plain
-PyTorch, a loop over t in float32: the CPU path and the kernel's yardstick
-of correctness. :func:`mamba_scan_bwd` launches the kernel and counts its
-launches in ``mamba_scan_bwd.launches``.
+PyTorch, a loop over t in float32: the kernel's yardstick of correctness.
+:func:`mamba_scan_bwd_chunked` gives the same gradients chunk by chunk by
+associative scans, the CPU path. :func:`mamba_scan_bwd` launches the
+kernel and counts its launches in ``mamba_scan_bwd.launches``.
 """
 from __future__ import annotations
 
@@ -50,10 +51,11 @@ import ctypes
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import check_capability
-from repro_torch.kernels import build
-from repro_torch.kernels.mamba_scan import STATE_DIMS, state_chunk
+from repro_torch.kernels import block_of, build
+from repro_torch.kernels.mamba_scan import SCAN_BLOCK, STATE_DIMS, associative_scan, state_chunk
 
 
 class ScanGrads(NamedTuple):
@@ -98,6 +100,54 @@ def mamba_scan_bwd_plain(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor, C: 
             dA += (gah * dt[:, t, :, None]).sum(0)
             g = a * g
     return ScanGrads(ddt, dx, dB, dC, dA, (dy * x).sum((0, 1)), g)
+
+
+def mamba_scan_bwd_chunked(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
+                           C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                           states: torch.Tensor, dy: torch.Tensor,
+                           dh_S: Optional[torch.Tensor] = None, *, chunk: int,
+                           block: int = SCAN_BLOCK) -> ScanGrads:
+    """The same gradients chunk by chunk of ``block_of(S, block)`` steps, the CPU
+    path (the counterpart of the JAX model's chunked scan under autodiff):
+    each chunk's states recomputed by :func:`associative_scan` from the
+    saved state at its start (``states[:, c0 // chunk]``: ``chunk`` divides
+    the scan's block), then every ``g_t`` of the chunk at once from the
+    reverse recurrence ``g_t = a_{t+1} g_{t+1} + C_t dy_t``, the same scan
+    run over the reversed chunk; the rest are elementwise products and
+    sums. ``[Bt, block, DI, N]`` is the largest tensor it holds."""
+    dt, x, B, C, A, D, dy = (t.float() for t in (dt, x, B, C, A, D, dy))
+    Bt, S, DI = x.shape
+    c = block_of(S, block)
+    if c < S and c % chunk:
+        raise ValueError(f"the saved states' chunk {chunk} must divide the scan's block {c}")
+    bx = dt * x
+    g = torch.zeros_like(states[:, 0]) if dh_S is None else dh_S.float()
+    ddt, dx, dB, dC = [], [], [], []
+    dA = torch.zeros_like(A)
+    for c0 in reversed(range(0, S, c)):
+        sl = slice(c0, c0 + c)
+        dt_c, x_c, dy_c, B_c = dt[:, sl], x[:, sl], dy[:, sl], B[:, sl, None, :]
+        a = torch.exp(dt_c[..., None] * A)                            # [Bt, c, DI, N]
+        h0 = states[:, c0 // chunk]
+        aa, bb = associative_scan(a, bx[:, sl, :, None] * B_c)
+        h_all = aa * h0[:, None] + bb                                 # h_t
+        h_prev = torch.cat([h0[:, None], h_all[:, :-1]], 1)           # h_{t-1}
+        # reversed: g'_s = a_{t+1} g'_{s-1} + C_t dy_t at t = c1 - 1 - s, from g
+        # (which carries a_{c1} g_{c1}); the first pair's a is 1
+        u = (dy_c[..., None] * C[:, sl, None, :]).flip(1)
+        a_next = F.pad(a.flip(1)[:, :-1], (0, 0, 0, 0, 1, 0), value=1.0)
+        ga, gb = associative_scan(a_next, u)
+        gs = (ga * g[:, None] + gb).flip(1)                           # g_t
+        dbx = (gs * B_c).sum(-1)
+        gah = gs * a * h_prev
+        ddt.append(dbx * x_c + (gah * A).sum(-1))
+        dx.append(dbx * dt_c + D * dy_c)
+        dB.append((gs * bx[:, sl, :, None]).sum(2))
+        dC.append((dy_c[..., None] * h_all).sum(2))
+        dA += (gah * dt_c[..., None]).sum((0, 1))
+        g = a[:, 0] * gs[:, 0]
+    cat = lambda ts: torch.cat(ts[::-1], 1)  # noqa: E731
+    return ScanGrads(cat(ddt), cat(dx), cat(dB), cat(dC), dA, (dy * x).sum((0, 1)), g)
 
 
 _FN = None

@@ -124,8 +124,17 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, block_to_expert: torc
     type. A loop over blocks: gathering ``w[block_to_expert]`` whole would
     make an ``nt x D x F`` copy (0.9 GB at moonshot's widths). Each block
     takes its expert's weights by ``index_select``, so no value is read on
-    the host (the dry run's fake tensors have none)."""
+    the host (the dry run's fake tensors have none). With one expert (a
+    rank's share under expert parallelism, jamba's 16 experts on 16 ranks)
+    every block takes it: 16 blocks a product, a sixteenth of the ops the
+    dry run dispatches on fake tensors."""
     y = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
+    if w.shape[0] == 1:
+        w0 = w[0].float()
+        for r0 in range(0, x.shape[0], 16 * block_t):
+            rows = slice(r0, r0 + 16 * block_t)
+            y[rows] = (x[rows].float() @ w0).to(x.dtype)
+        return y
     for i in range(block_to_expert.shape[0]):
         rows = slice(i * block_t, (i + 1) * block_t)
         we = w.index_select(0, block_to_expert[i:i + 1])[0]
@@ -143,9 +152,13 @@ def grouped_matmul_bwd_plain(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     :func:`grouped_matmul_plain` for ``dy`` [T_pad, F], float32 sums; None
     for what is not needed. Under ``used_blocks``' promise (x and dy zero
     on the blocks at and past it) it leaves those blocks out: zeros in dx,
-    nothing in dw. dW sums each expert's blocks in block order. No value is
-    read on the host: the blocks past ``used_blocks`` are masked, not cut."""
+    nothing in dw. dW sums each expert's blocks in block order (with one
+    expert, 16 blocks a product as the forward: their rows summed inside
+    each product, the products in block order). No value is read on the
+    host: the blocks past ``used_blocks`` are masked, not cut."""
     nt = block_to_expert.shape[0]
+    if w.shape[0] == 1:
+        return _one_expert_bwd(x, w, dy, block_t, used_blocks, need_dx, need_dw)
     live = None
     if used_blocks is not None:
         live = torch.arange(nt, device=x.device) < used_blocks.to(x.device)
@@ -166,6 +179,30 @@ def grouped_matmul_bwd_plain(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                 g = g * live[i]
             dw.index_add_(0, block_to_expert[i:i + 1], g[None])
         dw = dw.to(w.dtype)
+    return dx, dw
+
+
+def _one_expert_bwd(x, w, dy, block_t, used_blocks, need_dx, need_dw):
+    """:func:`grouped_matmul_bwd_plain` where every block takes the one
+    expert, 16 blocks a product."""
+    R = 16 * block_t
+    live = None
+    if used_blocks is not None:
+        live = (torch.arange(x.shape[0], device=x.device)
+                < used_blocks.to(x.device) * block_t)[:, None]
+    w0 = w[0].float()
+    dx = dw = None
+    if need_dx:
+        dx = torch.empty_like(x)
+        for r0 in range(0, x.shape[0], R):
+            d = (dy[r0:r0 + R].float() @ w0.T).to(x.dtype)
+            dx[r0:r0 + R] = d if live is None else torch.where(live[r0:r0 + R], d, 0)
+    if need_dw:
+        acc = torch.zeros(w.shape[1:], dtype=torch.float32, device=w.device)
+        for r0 in range(0, x.shape[0], R):
+            xr = x[r0:r0 + R].float()
+            acc += (xr if live is None else xr * live[r0:r0 + R]).T @ dy[r0:r0 + R].float()
+        dw = acc[None].to(w.dtype)
     return dx, dw
 
 

@@ -1,8 +1,11 @@
 """Dispatch between the hand-written kernels and their plain versions.
 
 The choice follows the tensor's device and nothing else: a CPU tensor takes
-the plain PyTorch version; a CUDA tensor takes the kernel, whose wrapper
-raises on what it cannot take. There is no fallback from one to the other.
+the plain PyTorch version (for prefill attention and the scan, the JAX
+package's blocked and chunked forms, not the whole-sequence and
+step-by-step oracles the kernels are held to); a CUDA tensor takes the
+kernel, whose wrapper raises on what it cannot take. There is no fallback
+from one to the other.
 
 The selective scan and the grouped matmul are differentiable: where autograd
 records and an input needs a gradient, each goes through a
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import is_meshed, mesh_of, placed, shard_dims, split_range
+from repro_torch.kernels import block_of
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
@@ -64,6 +68,16 @@ def run_local(fn, mesh, args, in_pl, out_pl):
     return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
                      in_grad_placements=grad_pl, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+def all_reduce(t: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """``t`` (a rank's local tensor) reduced by ``op`` ("sum", "max") over
+    the mesh dims ``dims`` in turn, by functional collectives (the ones the
+    dry run's counters see)."""
+    import torch.distributed._functional_collectives as funcol
+    for d in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, d)))
+    return t
 
 
 def with_partial(pl, dims) -> tuple:
@@ -125,14 +139,20 @@ def local_heads(fn, mesh, hdims, H, KV, kv_args: Sequence[int]):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, block: int = 512) -> torch.Tensor:
+    """The attention output: kernel B1 on the card (its own tiles: ``block``
+    is not read); on the CPU the blocked forward over ``block``-row pairs
+    (the JAX package's ``attend_blocked``), one pair's scores at a time
+    (``block_of(S, block)``)."""
     if is_meshed(q, k, v):
         mesh, qpl, kvpl, hdims = attention_plan(q, k, head_dim=2, kv_dim=2)
-        fn = local_heads(lambda q, k, v: flash_attention(q, k, v, causal=causal, window=window),
+        fn = local_heads(lambda q, k, v: flash_attention(q, k, v, causal=causal, window=window,
+                                                         block=block),
                          mesh, hdims, q.shape[2], k.shape[2], (1, 2))
         return run_local(fn, mesh, [q, k, v], [qpl, kvpl, kvpl], qpl)
     if q.device.type == "cpu":
-        return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+        return _flash_bwd.attend_fwd_plain(q, k, v, causal=causal, window=window,
+                                           block=block_of(q.shape[1], block))[0]
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -175,7 +195,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      positions: torch.Tensor, *, ring: bool = False) -> torch.Tensor:
+    """One token's attention against the cache: kernel B2 on the card, its
+    plain version on the CPU. On DTensors whose cache slots are split
+    (``act_kv_seq``), each rank attends over its own slots and the ranks
+    combine their partials (:func:`_decode_slot_split`); otherwise batch and
+    heads split as :func:`attention_plan` has them."""
     if is_meshed(q, k_cache, v_cache, positions):
+        sdims = [i for i in shard_dims(k_cache, 1) if i not in shard_dims(k_cache, 0)]
+        if sdims:
+            return _decode_slot_split(q, k_cache, v_cache, positions, ring, sdims)
         mesh, qpl, kvpl, hdims = attention_plan(q, k_cache, head_dim=1, kv_dim=2,
                                                 batch_of=k_cache)
         ppl = placed(mesh, {0: shard_dims(k_cache, 0)})
@@ -186,6 +214,39 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if q.device.type == "cpu":
         return _decode.decode_attention_plain(q, k_cache, v_cache, positions, ring=ring)
     return _decode.decode_attention(q, k_cache, v_cache, positions, ring=ring)
+
+
+def _decode_slot_split(q, k_cache, v_cache, positions, ring: bool, sdims) -> torch.Tensor:
+    """Flash-decoding across ranks, the JAX package's form for a cache split
+    over its slots: each rank takes the partial ``(acc, m, l)`` of its slot
+    range (B2's partial route on the card, its plain version on the CPU),
+    then the largest m and the two rescaled sums are all-reduced over the
+    slots' mesh dims. q's heads stay whole on those dims (every rank needs
+    them for its slots); batch and kv heads split as the cache has them. No
+    slot leaves its rank."""
+    mesh = mesh_of(q, k_cache)
+    bdims = shard_dims(k_cache, 0)
+    hdims = [i for i in shard_dims(k_cache, 2) if i not in bdims and i not in sdims]
+    qpl = placed(mesh, {0: bdims, 1: hdims})
+    kvpl = placed(mesh, {0: bdims, 1: sdims, 2: hdims})
+    ppl = placed(mesh, {0: bdims})
+    W = k_cache.shape[1]
+
+    def local(q, k, v, p):
+        w0, _ = split_range(mesh, sdims, W)
+        if q.device.type == "cpu":
+            acc, m, l = _decode.decode_attention_partial_plain(q, k, v, p, ring=ring, offset=w0,
+                                                               total=W)
+        else:
+            acc, m, l = _decode.decode_attention_partial(q, k, v, p, ring=ring, offset=w0,
+                                                         total=W)
+        M = all_reduce(m, "max", mesh, sdims)
+        w = torch.where(torch.isinf(m), 0.0, torch.exp(m - M))
+        sums = all_reduce(torch.cat([acc * w[..., None], (l * w)[..., None]], -1), "sum",
+                          mesh, sdims)                                  # [B, H, hd + 1]
+        return (sums[..., :-1] / torch.clamp_min(sums[..., -1:], 1e-30)).to(q.dtype)
+
+    return run_local(local, mesh, [q, k_cache, v_cache, positions], [qpl, kvpl, kvpl, ppl], qpl)
 
 
 def _records(*ts) -> bool:
@@ -205,7 +266,7 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor, C: torch.Tens
     if _records(dt, x, B, C, A, D, h0):
         return _MambaScan.apply(dt, x, B, C, A, D, h0)
     if x.device.type == "cpu":
-        return _mamba.mamba_scan_plain(dt, x, B, C, A, D, h0)
+        return _mamba.mamba_scan_chunked(dt, x, B, C, A, D, h0)
     return _mamba.mamba_scan(dt, x, B, C, A, D, h0)
 
 
@@ -224,8 +285,8 @@ def _scan_plan(x):
 def _mamba_scan_states(dt, x, B, C, A, D, h0=None):
     """(y, h_S, the states at the start of every ``state_chunk(N)`` steps)."""
     if x.device.type == "cpu":
-        return _mamba.mamba_scan_plain(dt, x, B, C, A, D, h0,
-                                       chunk=_mamba.state_chunk(B.shape[2]))
+        return _mamba.mamba_scan_chunked(dt, x, B, C, A, D, h0,
+                                         chunk=_mamba.state_chunk(B.shape[2]))
     return _mamba.mamba_scan(dt, x, B, C, A, D, h0, states=True)
 
 
@@ -242,8 +303,8 @@ def mamba_scan_bwd(dt, x, B, C, A, D, states, dy, dh_S=None) -> _mamba_bwd.ScanG
                        with_partial(apl, bd), with_partial(apl, bd), hpl))
         return _mamba_bwd.ScanGrads(*g)
     if x.device.type == "cpu":
-        return _mamba_bwd.mamba_scan_bwd_plain(dt, x, B, C, A, D, states, dy, dh_S,
-                                               chunk=_mamba.state_chunk(B.shape[2]))
+        return _mamba_bwd.mamba_scan_bwd_chunked(dt, x, B, C, A, D, states, dy, dh_S,
+                                                 chunk=_mamba.state_chunk(B.shape[2]))
     return _mamba_bwd.mamba_scan_bwd(dt, x, B, C, A, D, states, dy, dh_S)
 
 

@@ -18,11 +18,12 @@ FLOPs, bytes and collectives each rank issues on its local shards, and the
 peak of its live storage.
 
 The fake tensors are ``cpu`` ones, so ``kernels/ops.py`` sends every kernel
-call to its plain version (a CUDA kernel cannot run on a fake tensor): the
-port's dry run counts the plain path, as the JAX dry run counts its
-``attn_impl="ref"`` path. Where the plain version holds more than the
-kernel (prefill attention's ``[B, KV, G, S, S]`` float32 scores), the peak
-is the plain path's.
+call to its CPU path (a CUDA kernel cannot run on a fake tensor): the
+port's dry run counts that path, as the JAX dry run counts its
+``attn_impl="ref"`` path. It takes the JAX package's forms: attention
+blocked over ``attn_block`` row pairs (one pair's scores at a time) and the
+selective scan chunked by 256 steps (an associative scan inside each), so
+the peaks and the op counts are those of the JAX functions.
 
 Modes (``build_cell``): ``train``, the train step of ``make_train_step``
 with the config's optimizer and its ``state_axes``; ``prefill``, with the
@@ -66,6 +67,19 @@ ART = "artifacts/dryrun_torch"
 # microbatches a train cell runs: the second repeats the first's peak and
 # adds the accumulation; their costs are scaled to the cell's ``accum``
 MICRO_RUN = 2
+
+
+def attn_block(shape) -> int:
+    """The blocked attention's block in the cell: the JAX model's 512, and
+    S / 16 past 8192 tokens (2048 at 32 768, the block the JAX dry run
+    probes its costs at, ``repro/launch/dryrun.py:163``). The pairs grow as
+    ``(S / block)^2``, each a few dozen ops dispatched on fake tensors: 2080
+    causal pairs a layer at 32 768 tokens and 512 rows, 136 at 2048. The
+    JAX dry run takes its memory from the model at 512 and its costs from
+    probes at 2048; here one run gives both, so a prefill_32k peak holds a
+    2048-row pair's scores (16 times a 512-row pair's). The artifact keeps
+    the JAX package's keys; the run's last line names the block."""
+    return max(512, shape.seq_len // 16)
 
 
 def grad_accum(cfg, shape, mesh) -> int:
@@ -118,7 +132,7 @@ def build_cell(cfg, shape, mesh, rules, model=None, *, grad_transform=None):
     ``FakeTensorMode``, fake ones). A train step runs ``min(MICRO_RUN,
     accum)`` of its microbatches; ``grad_transform`` is its hook on the mean
     gradients."""
-    model = model or LM(cfg, device="cpu")
+    model = model or LM(cfg, device="cpu", attn_block=attn_block(shape))
     resolver = make_resolver(mesh, rules)
     if shape.mode == "train":
         accum = grad_accum(cfg, shape, mesh)
@@ -185,14 +199,17 @@ def roofline_spec(mesh, rules, shape, cfg):
 
 
 def _scale(c, f):
-    return {"flops": c["flops"] * f, "bytes": c["bytes"] * f,
+    return {"flops": c["flops"] * f, "transcendentals": c["transcendentals"] * f,
+            "bytes": c["bytes"] * f,
             "link_bytes": c["link_bytes"] * f,
             "ops": {o: int(v * f) for o, v in c["ops"].items()},
             "raw_bytes": {o: v * f for o, v in c["raw_bytes"].items()}}
 
 
 def _add(a, b):
-    return {"flops": a["flops"] + b["flops"], "bytes": a["bytes"] + b["bytes"],
+    return {"flops": a["flops"] + b["flops"],
+            "transcendentals": a["transcendentals"] + b["transcendentals"],
+            "bytes": a["bytes"] + b["bytes"],
             "link_bytes": a["link_bytes"] + b["link_bytes"],
             "ops": {o: a["ops"].get(o, 0) + b["ops"].get(o, 0)
                     for o in set(a["ops"]) | set(b["ops"])},
@@ -247,7 +264,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
         rules = rules_override or rules_for_cfg(shape.mode, cfg)
         with FakeTensorMode():
             t0 = time.time()
-            model = LM(cfg, device="cpu")
+            model = LM(cfg, device="cpu", attn_block=attn_block(shape))
             t_build = time.time() - t0
             t0 = time.time()
             cost, mem = probe_costs(cfg, shape, mesh, rules, model=model)
@@ -265,10 +282,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
         path = os.path.join(out_dir, f"{arch}__{shape_name}__{mesh_kind}.json")
         with open(path, "w") as f:
             json.dump(result, f, indent=1, sort_keys=True)
-    print({k: v for k, v in cost.items() if k in ("flops", "bytes")})
+    print({k: v for k, v in cost.items() if k in ("flops", "transcendentals", "bytes")})
     print(mem)                          # the peak against the card's HBM
     print(f"[dryrun] {arch} x {shape_name} x {mesh_kind}: "
-          f"peak={rep.mem['peak_gib']:.2f}GiB fits={fits} "
+          f"peak={rep.mem['peak_gib']:.2f}GiB (attention block {attn_block(shape)}) "
+          f"fits={fits} "
           f"compute={rep.t_compute*1e3:.2f}ms memory={rep.t_memory*1e3:.2f}ms "
           f"collective={rep.t_collective*1e3:.2f}ms bottleneck={rep.bottleneck} "
           f"useful={rep.useful_flops_ratio:.3f} roofline_frac={rep.roofline_fraction:.3f}")

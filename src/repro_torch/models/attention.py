@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.distributed.sharding import is_meshed, local_ranges, shard_dims
-from repro_torch.kernels import ops
+from repro_torch.kernels import block_of, ops
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
 from repro_torch.models.layers import head_rms_norm, rope, shard_act
 
@@ -108,6 +108,38 @@ def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], n, hd)
 
 
+class _MergeHeads(torch.autograd.Function):
+    """``[..., n, hd]`` as ``[..., n * hd]`` split over ``dims`` (the mesh
+    dims that split the out-projection's rows), as XLA splits the product
+    there: the weight's gradient is then split too, where DTensor would
+    otherwise multiply the whole heads on every rank of those dims. The
+    gradient comes back through :func:`_split_heads`, gathered first where
+    its split does not keep the heads whole (7 heads over 2 ranks)."""
+
+    @staticmethod
+    def forward(ctx, t, dims):
+        from torch.distributed.tensor import Shard
+        ctx.heads = t.shape[-2:]
+        flat = t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+        mesh, d = flat.device_mesh, flat.dim() - 1
+        pl = [Shard(d) if i in dims and p.is_replicate() else p
+              for i, p in enumerate(flat.placements)]
+        if flat.shape[d] % math.prod(mesh.size(i) for i in dims) or pl == list(flat.placements):
+            return flat
+        return flat.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _split_heads(g, *ctx.heads), None
+
+
+def _merge_heads(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``t`` [..., n, hd] as [..., n * hd], the input of ``@ w``."""
+    if is_meshed(t, w) and torch.is_grad_enabled() and t.requires_grad:
+        return _MergeHeads.apply(t, shard_dims(w, 0))
+    return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+
+
 def attn_forward(x: torch.Tensor, p: dict, cfg, layer_local: bool,
                  positions: torch.Tensor, *, theta: float,
                  block: int = 512) -> Tuple[torch.Tensor, dict]:
@@ -117,7 +149,8 @@ def attn_forward(x: torch.Tensor, p: dict, cfg, layer_local: bool,
     layers (ring-placed) else S. When autograd records (training), attention
     is :func:`attend_blocked` over ``block``-row blocks (the single block S
     where ``block`` does not divide S, as in the JAX package); otherwise the
-    serving call, B1 without its logsumexp.
+    serving call, B1 without its logsumexp (on the CPU the same blocked
+    forward, so no call holds ``[B, KV, G, S, S]`` scores).
     """
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -133,14 +166,13 @@ def attn_forward(x: torch.Tensor, p: dict, cfg, layer_local: bool,
     q = shard_act(q, ("act_batch", "act_seq", "act_heads", None))
     k = shard_act(k, ("act_batch", "act_seq", "act_kv_heads", None))
     window = cfg.sliding_window if layer_local else 0
+    blk = block_of(S, block)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        blk = min(block, S)
-        out = attend_blocked(q, k, v, causal=cfg.causal, window=window,
-                             block=blk if S % blk == 0 else S)
+        out = attend_blocked(q, k, v, causal=cfg.causal, window=window, block=blk)
     else:
-        out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
+        out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window, block=blk)
     out = shard_act(out, ("act_batch", "act_seq", "act_heads", None))
-    y = out.reshape(B, S, H * hd) @ p["wo"]
+    y = _merge_heads(out, p["wo"]) @ p["wo"]
     if layer_local and cfg.sliding_window and S > cfg.sliding_window:
         # last W tokens, placed at their ring slots (slot = pos % W)
         W = cfg.sliding_window

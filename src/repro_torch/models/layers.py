@@ -120,7 +120,13 @@ def sharding_context(resolver: Callable):
 
 def shard_act(x: torch.Tensor, names: Tuple[Optional[str], ...]) -> torch.Tensor:
     """``x`` redistributed to the placements its logical names resolve to
-    (a dim left unconstrained keeps its placement; a ``Partial`` is reduced)."""
+    (a dim left unconstrained keeps its placement; a ``Partial`` is reduced).
+    Under autograd the gradient is constrained to the same spec on its way
+    back, as ``with_sharding_constraint`` constrains the cotangent: a
+    ``Partial`` gradient (the logits' backward sums over the split vocab) is
+    reduced here, so the backward matmuls before it split as the forward
+    ones do, rather than each rank gathering a weight to multiply a partial
+    sum."""
     resolver = getattr(_CTX, "resolver", None)
     if resolver is None:
         return x
@@ -130,9 +136,43 @@ def shard_act(x: torch.Tensor, names: Tuple[Optional[str], ...]) -> torch.Tensor
     s = resolver(x.shape, names)
     if s is None:
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Constrain.apply(x, s.spec)
+    return _constrain(x, s.spec)
+
+
+def _constrain(x, spec):
     from repro_torch.distributed.sharding import spec_placements
-    pl = spec_placements(x.device_mesh, s.spec, current=x.placements)
+    pl = spec_placements(x.device_mesh, spec, current=x.placements)
     return x if tuple(pl) == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+class _Constrain(torch.autograd.Function):
+    """:func:`shard_act` under autograd: the value and its gradient each
+    redistributed to ``spec``'s placements."""
+
+    @staticmethod
+    def forward(ctx, x, spec):
+        ctx.spec = spec
+        return _constrain(x, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _constrain(g, ctx.spec), None
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's ``Partial`` placements reduced (to ``Replicate``), as
+    XLA reduces a partial sum before a nonlinear op. DTensor would reduce a
+    copy for the op's nonlinear part only and hand the partial sum on to
+    the next matmul, which then gathers its weight (the decode residual
+    after an out-projection split over ``model``)."""
+    from repro_torch.distributed.sharding import is_meshed
+    if not is_meshed(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in x.placements])
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +183,7 @@ def shard_act(x: torch.Tensor, names: Tuple[Optional[str], ...]) -> torch.Tensor
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     # variance accumulated in f32; the scaling runs in x.dtype, in the JAX
     # package's order: (x * inv) * (1 + w)
+    x = reduce_partial(x)
     x32 = x.float()
     var = (x32 * x32).sum(-1, keepdim=True) / x.shape[-1]
     inv = torch.rsqrt(var + eps).to(x.dtype)

@@ -1,12 +1,12 @@
 """Mamba-1 (selective SSM) block, ported from the JAX package's ``models/mamba.py``.
 
 Sequence mode runs the selective scan through ``kernels.ops.mamba_scan``:
-kernel B3 on the card, its plain sequential version on the CPU. The JAX
-package's ``_ssm_chunk_scan`` (the XLA-friendly chunked associative form of
-the same recurrence) has no counterpart here; B3 takes its place and, like
-it, hands the final state to the decode cache. Under autograd the scan is
-differentiable through the same op: B3 saves its chunk states and the
-backward is kernel B3b (the plain reverse recurrence on the CPU).
+kernel B3 on the card; on the CPU the JAX package's ``_ssm_chunk_scan``
+(chunks of 256 steps, an associative scan inside each:
+``kernels/mamba_scan.py::mamba_scan_chunked``). Either hands the final
+state to the decode cache. Under autograd the scan is differentiable
+through the same op: B3 saves its chunk states and the backward is kernel
+B3b (on the CPU the chunked backward).
 
 Decode mode is the O(1) recurrence in plain PyTorch, as in the JAX package,
 which computes it outside any Pallas kernel. The "cache" is (conv window

@@ -63,7 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BLOCK_ATTN, ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import is_meshed
+from repro_torch.distributed.sharding import is_meshed, placed, shard_dims, split_range
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -545,10 +545,60 @@ def _replicating(params):
 
 
 def _label_logprob(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """log_softmax(x @ head^T) at the labels; logits in x's type, then float32."""
+    """log_softmax(x @ head^T) at the labels; logits in x's type, then float32.
+    Logits split over the vocabulary (a mesh) take :func:`_vocab_parallel_logprob`."""
     logits = shard_act(x @ head.T, ("act_batch", "act_seq", "act_vocab"))
+    if is_meshed(logits) and shard_dims(logits, 2):
+        return _vocab_parallel_logprob(logits, labels)
     lp = torch.log_softmax(logits.float(), dim=-1)
     return torch.gather(lp, -1, labels[..., None])[..., 0]
+
+
+def _vocab_parallel_logprob(logits, labels) -> torch.Tensor:
+    """The label's log-prob from logits [B, S, V] split over V, each rank on
+    its own shard (as XLA partitions the JAX package's cross-entropy over
+    the vocabulary): no rank holds a whole row of the vocabulary, forward
+    or backward. Batch and sequence splits stay as the logits have them; the
+    vocabulary's may be uneven (504 classes over 16 ranks)."""
+    from repro_torch.kernels import ops
+    mesh = logits.device_mesh
+    vdims = shard_dims(logits, 2)
+    rows = {d: [i for i in shard_dims(logits, d) if i not in vdims] for d in (0, 1)}
+    lpl = placed(mesh, {**rows, 2: vdims})
+    rpl = placed(mesh, rows)
+    v0, _ = split_range(mesh, vdims, logits.shape[2])
+    return ops.run_local(lambda lg, lab: _VocabLogProb.apply(lg, lab, mesh, vdims, v0), mesh,
+                         [logits, labels], [lpl, rpl], rpl)
+
+
+class _VocabLogProb(torch.autograd.Function):
+    """On a rank's vocabulary shard ``lg`` [b, s, v] (columns ``[v0, v0 +
+    v)`` of V, split over the mesh dims ``vdims``) and global labels [b, s]:
+    ``logit[label] - max - log sum exp(logit - max)``, the max all-reduced by
+    max and the sum of exponentials and the label's logit (a masked sum over
+    the shard: exact, one term and zeros) by sum over ``vdims``. The
+    backward, ``g (onehot - softmax)``, is local to the shard."""
+
+    @staticmethod
+    def forward(ctx, lg, lab, mesh, vdims, v0):
+        from repro_torch.kernels.ops import all_reduce
+        lg32 = lg.float()
+        mx = all_reduce(lg32.amax(-1), "max", mesh, vdims)
+        onehot = (torch.arange(v0, v0 + lg.shape[-1], device=lg.device) == lab[..., None])
+        sums = torch.stack([torch.exp(lg32 - mx[..., None]).sum(-1),
+                            torch.where(onehot, lg32, 0.0).sum(-1)])
+        se, picked = all_reduce(sums, "sum", mesh, vdims)
+        ctx.save_for_backward(lg, lab, mx, se)
+        ctx.v0 = v0
+        return picked - mx - torch.log(se)
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lab, mx, se = ctx.saved_tensors
+        v0 = ctx.v0
+        onehot = (torch.arange(v0, v0 + lg.shape[-1], device=lg.device) == lab[..., None])
+        p = torch.exp(lg.float() - mx[..., None]) / se[..., None]
+        return (g[..., None] * (onehot.float() - p)).to(lg.dtype), None, None, None, None
 
 
 def _chunked_ce(x, head, labels, mask, chunk: int) -> torch.Tensor:

@@ -18,8 +18,10 @@ a ``TorchDispatchMode``, watch the step run instead.
   not a collective of its own and is not counted.
 * :func:`count_costs` counts FLOPs and bytes: the matmul and attention
   formulas of ``torch.utils.flop_counter``, one FLOP per output element of
-  a pointwise op (a copy does none) and per input element of a reduction;
-  the bytes each
+  a pointwise op (a copy does none) and per input element of a reduction,
+  a transcendental op (exp, log, tanh, sqrt, ...) apart under
+  ``transcendentals``, as XLA's ``cost_analysis`` keeps them apart; the
+  bytes each
   non-view op reads and writes (a gather counts what it gathers, an
   in-place scatter what it writes, as XLA counts gathers and
   dynamic-update-slices).
@@ -180,6 +182,8 @@ class _Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.namespace == "prim":           # metadata queries: no tensor, nothing counted
+            return func(*args, **kwargs)
         dt = _dtensor_type()
         if dt is not None and any(issubclass(t, dt) for t in types):
             return NotImplemented      # DTensor's dispatch issues the local ops
@@ -291,25 +295,58 @@ _ALIASES = {"_unsafe_view.default", "lift_fresh.default", "wait_tensor.default",
             "_wrap_tensor_autograd.default"}
 
 
-def _flops_of(func, args, kwargs, out) -> float:
+# pointwise ops that XLA's cost analysis counts as transcendentals, not FLOPs
+_TRANSCENDENTAL = {"exp", "exp2", "expm1", "log", "log1p", "log2", "log10", "tanh", "sigmoid",
+                   "erf", "erfc", "erfinv", "rsqrt", "sqrt", "sin", "cos", "tan", "asin", "acos",
+                   "atan", "atan2", "sinh", "cosh", "asinh", "acosh", "atanh", "logit"}
+# fused activations, as (FLOPs, transcendentals) an element of the JAX
+# package's expansion: silu = x * logistic(x), gelu's tanh form
+# 0.5 x (1 + tanh(c (x + 0.044715 x^3))); their backwards recompute the
+# transcendental and take the chain rule's products and sums
+_ACTIVATIONS = {"silu": (1, 1), "silu_backward": (4, 1), "gelu": (8, 1),
+                "gelu_backward": (16, 1)}
+
+
+def _transcendental(func, args) -> bool:
+    name = func._opname.rstrip("_")
+    if name in _TRANSCENDENTAL:
+        return True
+    if name == "pow":                # x ** 2 is multiplies; x ** 0.5 or a ** x is not
+        e = args[1] if len(args) > 1 else None
+        return not (isinstance(e, (int, float)) and float(e).is_integer()) \
+            or isinstance(args[0], (int, float))
+    return False
+
+
+def _flops_of(func, args, kwargs, out):
+    """(FLOPs, transcendentals) of one op, as XLA's ``cost_analysis`` counts
+    them: the matmul and attention formulas of ``torch.utils.flop_counter``,
+    one FLOP an output element of a pointwise op (a copy does none) and an
+    input element of a reduction; a transcendental pointwise op (exp, log,
+    tanh, sqrt, ...) counts in the second term only."""
     from torch.utils.flop_counter import flop_registry
     formula = flop_registry.get(func.overloadpacket)
     if formula is not None:
-        return float(formula(*args, **kwargs, out_val=out))
+        return float(formula(*args, **kwargs, out_val=out)), 0.0
     if torch.Tag.pointwise in func.tags and func._opname not in ("clone", "fill_"):
-        return float(sum(t.numel() for t in _tensors(out)))
+        n = float(sum(t.numel() for t in _tensors(out)))
+        if func._opname in _ACTIVATIONS:
+            f, t = _ACTIVATIONS[func._opname]
+            return f * n, t * n
+        return (0.0, n) if _transcendental(func, args) else (n, 0.0)
     if torch.Tag.reduction in func.tags:
-        return float(sum(t.numel() for t in _tensors(args)[:1]))
-    return 0.0
+        return float(sum(t.numel() for t in _tensors(args)[:1])), 0.0
+    return 0.0, 0.0
 
 
 class CostCounter(_Counter):
-    """The FLOPs and the bytes of a step, per device: :attr:`flops`,
-    :attr:`bytes`."""
+    """The FLOPs, transcendentals and bytes of a step, per device:
+    :attr:`flops`, :attr:`transcendentals`, :attr:`bytes`."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0.0
+        self.transcendentals = 0.0
         self.bytes = 0.0
 
     def op(self, func, args, kwargs, out):
@@ -317,7 +354,9 @@ class CostCounter(_Counter):
         name = f"{func._opname}.{func._overloadname}"
         if not outs or func.is_view or name in _ALIASES:
             return
-        self.flops += _flops_of(func, args, kwargs, out)
+        flops, trans = _flops_of(func, args, kwargs, out)
+        self.flops += flops
+        self.transcendentals += trans
         ins = _tensors((args, kwargs))
         if name in _GATHERS:
             moved = 2 * sum(_nbytes(t) for t in outs)
@@ -480,8 +519,9 @@ def run_counted(fn, args: Sequence, donated: Sequence[int] = ()):
 
 def cost_dict(cost: CostCounter, coll: CollectiveCounter) -> dict:
     """The counts so far as :func:`analyze_from_parts` takes them."""
-    return {"flops": cost.flops, "bytes": cost.bytes, "link_bytes": coll.stats.link_bytes,
-            "ops": dict(coll.stats.ops), "raw_bytes": dict(coll.stats.raw_bytes)}
+    return {"flops": cost.flops, "transcendentals": cost.transcendentals, "bytes": cost.bytes,
+            "link_bytes": coll.stats.link_bytes, "ops": dict(coll.stats.ops),
+            "raw_bytes": dict(coll.stats.raw_bytes)}
 
 
 def analyze(fn, args: Sequence, *, arch: str, shape, mesh_name: str, n_devices: int, cfg,

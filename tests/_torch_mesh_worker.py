@@ -30,8 +30,10 @@ files, ``pods.json``, ``serve.json``).
   (``pods.json``).
 * ``serve``: for :data:`SERVE_ARCHS`, a prefill on the ``(4, 2)`` mesh under
   ``PREFILL_RULES`` and 3 decode steps under ``DECODE_RULES`` (gemma3's
-  cache split over its slots, so that its ring writes land in one rank's
-  shard) against the same run on plain tensors; and :func:`count_cells` on
+  under ``LONG_DECODE_RULES``: every cache split over its slots on both
+  mesh dims, so that its ring writes land in one rank's shard and each
+  rank attends over its own slots) against the same run on plain tensors,
+  and the local cache tensors that hold all of a layer's slots (none); and :func:`count_cells` on
   real tensors, which tests/test_torch_mesh.py holds to the same count on
   fake tensors of a fake group (``serve.json``).
 """
@@ -51,13 +53,15 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import SHAPES, ModelConfig, get_config, reduced
 from repro_torch.data.pipeline import DataConfig, TokenStream
 from repro_torch.distributed.checkpoint import CheckpointManager
-from repro_torch.distributed.sharding import (DECODE_RULES, PREFILL_RULES, TRAIN_RULES,
+from repro_torch.distributed.sharding import (DECODE_RULES, LONG_DECODE_RULES, PREFILL_RULES,
+                                              TRAIN_RULES,
                                               NamedSharding, make_resolver, place,
                                               placements_spec, rules_for_cfg, tree_shardings)
 from repro_torch.launch import train as launcher
 from repro_torch.launch.mesh import init_process_group, make_local_mesh
 from repro_torch.models import LM
 from repro_torch.models.layers import sharding_context
+from repro_torch.telemetry import roofline as R
 from repro_torch.train.optimizer import SGDM, Adafactor, AdamW
 
 # name: (arch, steps, optimizer, model axis). moonshot's experts split over
@@ -271,6 +275,63 @@ def shard_act_checks(mesh) -> dict:
     return res
 
 
+class _Holding(R._Counter):
+    """The local tensors a rank makes whose shape ``has`` accepts (the
+    dry run's counter: DTensor's shape propagation left out)."""
+
+    def __init__(self, has):
+        super().__init__()
+        self.has, self.seen = has, []
+
+    def op(self, func, args, kwargs, out):
+        self.seen += [[str(func), list(t.shape)] for t in R._tensors(out) if self.has(t.shape)]
+
+
+def vocab_checks(mesh) -> dict:
+    """The label log-prob of logits split over the vocabulary (``model``)
+    and batch (``data``), forward and backward, against the single-process
+    run, at a vocabulary of 200 (100 a rank) and of 201 (split unevenly, as
+    hubert's 504 classes over 16 ranks): each error over the reference's
+    largest magnitude; the local tensors with the whole vocabulary in a dim
+    (none; no other dim of the check is 200 or 201), and whether the
+    replicated ``log_softmax`` and ``gather`` on the same DTensors make any
+    (they do)."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import shard_act
+    res = {}
+    for V in (200, 201):
+        gen = torch.Generator().manual_seed(V)
+        x = torch.randn(4, 16, 32, generator=gen, requires_grad=True)
+        head = (torch.randn(V, 32, generator=gen) * 0.3).requires_grad_()
+        labels = torch.randint(0, V, (4, 16), generator=gen)
+        labels[0, :2] = torch.tensor([0, V - 1])         # the first and the last column
+        g = torch.randn(4, 16, generator=gen)
+        lp = T._label_logprob(x, head, labels)
+        (lp * g).sum().backward()
+        dx = place(x.detach(), NamedSharding(mesh, ("data",))).requires_grad_()
+        dh = distribute_tensor(head.detach(), mesh, [Shard(1), Shard(0)]).requires_grad_()
+        dg = place(g, NamedSharding(mesh, ("data",)))
+        whole = lambda shape: V in shape  # noqa: E731
+        with sharding_context(make_resolver(mesh, TRAIN_RULES)):
+            with _Holding(whole) as split:
+                dlp = T._label_logprob(dx, dh, labels)
+                (dlp * dg).sum().backward()
+            with _Holding(whole) as replicated:
+                lg = shard_act(dx.detach() @ dh.detach().T, ("act_batch", "act_seq", "act_vocab"))
+                lg.requires_grad_()
+                lab = place(labels, NamedSharding(mesh, ("data",)))
+                rl = torch.gather(torch.log_softmax(lg.float(), -1), -1, lab[..., None])[..., 0]
+                (rl * dg).sum().backward()
+        rel = lambda got, want: _err(got, want) / want.abs().max().item()  # noqa: E731
+        res[V] = {"lp": rel(dlp, lp), "dx": rel(dx.grad, x.grad),
+                  "dhead": rel(dh.grad, head.grad), "logits": repr(tuple(lg.placements)),
+                  "placements": repr(tuple(dlp.placements)), "whole": split.seen,
+                  "whole_replicated": len(replicated.seen)}
+    return res
+
+
 def _took(what: str, t0: float) -> None:
     if dist.get_rank() == 0:
         print(f"[worker] {what}: {time.monotonic() - t0:.1f} s", flush=True)
@@ -282,8 +343,8 @@ def train_job(out: str, meshes: dict) -> None:
     rank = dist.get_rank()
     t0 = time.monotonic()
     res = {"coord": mesh.get_coordinate(), "ops": ops_checks(mesh),
-           "shard_act": shard_act_checks(mesh)}
-    _took("kernels.ops and shard_act on DTensors", t0)
+           "shard_act": shard_act_checks(mesh), "vocab": vocab_checks(mesh)}
+    _took("kernels.ops, shard_act and the vocab-parallel log-prob on DTensors", t0)
     for name, (arch, steps, opt_name, axis) in RUNS.items():
         t0 = time.monotonic()
         rec = run_steps(out, name, meshes[axis])
@@ -434,17 +495,21 @@ def _padded(lm: LM, cache: dict) -> dict:
     return big
 
 
+def _decode_rules(arch: str):
+    """The decode rules of the run: gemma3 under ``LONG_DECODE_RULES`` (the
+    long_500k cell's context parallelism), which split every cache's slots
+    over both mesh dims, its local layers' rings of 16 and its global
+    layers' 32 (under ``DECODE_RULES`` its 4 kv heads take the model axis
+    and the constraint in ``attn_decode`` moves a slot-split cache to them)."""
+    return LONG_DECODE_RULES if arch == "gemma3_12b" else DECODE_RULES
+
+
 def _cache_shardings(lm: LM, mesh, arch: str):
-    """The decode rules' cache shardings; gemma3's split over the slots
-    (its 4 kv heads would otherwise take the model axis)."""
+    """The decode rules' cache shardings."""
     specs, axes = lm.cache_specs(BATCH, MAX_LEN)
     meta = {"slots": [{n: torch.empty(sh, dtype=dt, device="meta") for n, (sh, dt) in sl.items()}
                       for sl in specs["slots"]]}
-    sh = tree_shardings(mesh, meta, axes, DECODE_RULES)
-    if arch == "gemma3_12b":
-        sh = {"slots": [{n: NamedSharding(mesh, (None, "data", "model")) for n in sl}
-                        for sl in sh["slots"]]}
-    return sh
+    return tree_shardings(mesh, meta, axes, _decode_rules(arch))
 
 
 def serve_run(mesh, arch: str) -> dict:
@@ -466,13 +531,19 @@ def serve_run(mesh, arch: str) -> dict:
     dcache = launcher.place_tree(cache, sh)
     res["cache_placements"] = sorted({repr(tuple(t.placements)) for sl in dcache["slots"]
                                       for t in sl.values()})
-    dp = launcher.place_tree(params, tree_shardings(mesh, params, axes, DECODE_RULES))
+    rules = _decode_rules(arch)
+    dp = launcher.place_tree(params, tree_shardings(mesh, params, axes, rules))
     tok, res["decode"] = logits.argmax(-1), []
+    # a cache tensor [B, W, KV, hd] with all of its MAX_LEN slots on a rank
+    whole = lambda shape: len(shape) == 4 and shape[1] == MAX_LEN and \
+        shape[3] == cfg.head_dim  # noqa: E731
+    res["whole_cache"] = []
     for i in range(3):
         batch = {"token": tok, "pos": torch.full((BATCH,), PROMPT + i)}
         logits, cache = lm.decode_step(cache, batch)
-        with sharding_context(make_resolver(mesh, DECODE_RULES)):
+        with sharding_context(make_resolver(mesh, rules)), _Holding(whole) as held:
             dlogits, dcache = lm.decode_step(dcache, batch, params=dp)
+        res["whole_cache"] += held.seen
         res["decode"].append([_err(dlogits, logits), _tree_err(dcache, cache)])
         tok = logits.argmax(-1)
     return res

@@ -1231,3 +1231,87 @@ def test_a_one_rank_nccl_mesh_step_equals_the_plain_step(card):
             torch.testing.assert_close(out["mesh"][1][n], p, rtol=5e-4, atol=5e-5)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("W,n_ranges,hd", [(256, 2, 64), (512, 4, 128), (2048, 2, 256),
+                                           (1024, 3, 96)])
+def test_decode_partials_over_slot_ranges_combine_to_the_whole(card, W, n_ranges, hd, ring,
+                                                               dtype):
+    """B2's slot-range route (a cache split over ranks): each range's
+    partial (acc, m, l), the slots masked by their global index, against the
+    plain partial form; a range with every slot masked gives m = -inf, l =
+    0, acc = 0; the partials combined by a max and two sums give B2's whole
+    call and the plain version. Ranges uneven where 3 do not divide W; the
+    2048-slot ranges take the split route."""
+    from repro_torch.kernels import decode_attention as dec
+    B, H, KV = 3, 8, 2
+    gen = torch.Generator(device=card).manual_seed(W + hd + n_ranges)
+    q = _randn(gen, (B, H, hd), dtype, card)
+    cache = _randn(gen, (2, B, W, KV, hd), dtype, card)
+    # a short sequence (every later range masked unless the ring wrapped),
+    # one at the cache's end, one past it
+    pos = torch.tensor([5, W - 1, W + 37 if ring else W - 2], dtype=torch.int32, device=card)
+    bounds = [round(W * i / n_ranges / 8) * 8 for i in range(n_ranges + 1)]
+    n = dec.decode_attention_partial.launches
+    parts, masked = [], 0
+    for a, b in zip(bounds, bounds[1:]):
+        k, v = cache[0][:, a:b], cache[1][:, a:b]
+        got = dec.decode_attention_partial(q, k, v, pos, ring=ring, offset=a, total=W)
+        want = dec.decode_attention_partial_plain(q, k, v, pos, ring=ring, offset=a, total=W)
+        torch.cuda.synchronize()
+        acc, m, l = got
+        dead = torch.isinf(want[1])
+        assert torch.equal(torch.isinf(m), dead)
+        assert (m[dead] < 0).all() and (l[dead] == 0).all() and (acc[dead] == 0).all()
+        masked += int(dead.sum())
+        live = ~dead
+        torch.testing.assert_close(m[live], want[1][live], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(l[live], want[2][live], rtol=TOL[dtype], atol=TOL[dtype])
+        torch.testing.assert_close((acc / l.clamp_min(1e-30)[..., None])[live],
+                                   (want[0] / want[2].clamp_min(1e-30)[..., None])[live],
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        parts.append(got)
+    assert dec.decode_attention_partial.launches == n + n_ranges
+    assert masked > 0 or ring
+    out = dec.combine_partials(parts, dtype)
+    whole = dec.decode_attention(q, cache[0], cache[1], pos, ring=ring)
+    plain = dec.decode_attention_plain(q, cache[0], cache[1], pos, ring=ring)
+    torch.testing.assert_close(out.float(), whole.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(out.float(), plain.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_slot_split_decode_on_a_cuda_mesh_launches_the_partial_route(card):
+    """``ops.decode_attention`` on a CUDA DTensor cache whose slots are split
+    (a one-rank ``(1, 1)`` mesh, the slots on ``model``) launches B2's
+    partial route and gives B2's whole call; no silent gather."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_process_group, make_local_mesh
+    started = not dist.is_initialized()
+    if started:
+        init_process_group("cuda")
+    try:
+        mesh = make_local_mesh(model_axis=1, device="cuda")
+        gen = torch.Generator(device=card).manual_seed(7)
+        q = _randn(gen, (2, 8, 128), torch.bfloat16, card)
+        kc = _randn(gen, (2, 64, 2, 128), torch.bfloat16, card)
+        vc = _randn(gen, (2, 64, 2, 128), torch.bfloat16, card)
+        pos = torch.tensor([10, 63], dtype=torch.int32, device=card)
+        pl = [Replicate(), Shard(1)]
+        dk = DTensor.from_local(kc, mesh, pl, run_check=False)
+        dv = DTensor.from_local(vc, mesh, pl, run_check=False)
+        n, w = dec.decode_attention_partial.launches, dec.decode_attention.launches
+        out = ops.decode_attention(q, dk, dv, pos)
+        torch.cuda.synchronize()
+        assert dec.decode_attention_partial.launches == n + 1
+        assert dec.decode_attention.launches == w
+        want = dec.decode_attention(q, kc, vc, pos)
+        torch.testing.assert_close(out.full_tensor().float(), want.float(), rtol=2e-2, atol=2e-2)
+    finally:
+        if started:
+            dist.destroy_process_group()

@@ -18,6 +18,7 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_route, split_chunk  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import attend_fwd_plain  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
@@ -55,9 +56,13 @@ def test_flash_plain_matches_pallas_and_oracle(B, S, H, KV, hd, causal, window, 
     _close(got, jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window), dtype)
     _close(got, pallas_flash(jq, jk, jv, causal=causal, window=window,
                              block_q=16, block_k=16), dtype)
-    # the CPU dispatch takes exactly the plain version
-    np.testing.assert_array_equal(
-        ops.flash_attention(tq, tk, tv, causal=causal, window=window).float().numpy(), got)
+    # the CPU dispatch takes exactly the blocked forward (one block of S
+    # rows at the default block of 512), within the oracle's tolerance of
+    # the plain version
+    blocked = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_array_equal(blocked.float().numpy(), attend_fwd_plain(
+        tq, tk, tv, causal=causal, window=window, block=S)[0].float().numpy())
+    _close(blocked.float().numpy(), got, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

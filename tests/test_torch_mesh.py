@@ -398,6 +398,37 @@ def test_production_mesh_matches_jax(production, world):
         assert (kind, device, shape) == ("DTensor", "meta", ref[world]["local"][n]), n
 
 
+@pytest.mark.parametrize("n", [1, 5, 8, 13, 201, 504])
+def test_local_ranges_split_as_dtensor_splits_even_or_not(n):
+    """``local_ranges`` (and ``split_range``) give each coordinate of a
+    ``(4, 2)`` mesh of a fake 8-rank group the range ``torch.chunk`` gives
+    it, as DTensor splits a dim, the first mesh dim outermost: even splits,
+    uneven ones (the vocab-parallel log-prob's 201 classes) and empty
+    shares."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.distributed.sharding import local_ranges
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+        for pl in ([Shard(0), Shard(0)], [Shard(0), Replicate()], [Replicate(), Shard(0)]):
+            for coord in [(a, b) for a in range(4) for b in range(2)]:
+                items = torch.arange(n)
+                for i, p in enumerate(pl):
+                    if isinstance(p, Shard):
+                        parts = torch.chunk(items, mesh.size(i))
+                        items = parts[coord[i]] if coord[i] < len(parts) else items[:0]
+                (a, b), = local_ranges((n,), mesh, pl, coord)
+                assert b - a == len(items), (pl, coord)
+                assert len(items) == 0 or (a, b) == (int(items[0]), int(items[-1]) + 1)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_sharded_qwen3_steps_match_the_single_process_run_and_jax(runs):
     got, single = runs["port"]["qwen3_32b"], runs["single"]["qwen3_32b"]
     ref = runs["jax"]["qwen3_32b"]
@@ -589,17 +620,50 @@ def test_meshed_prefill_and_decode_equal_the_single_process_run(runs, arch):
     ``LM.decode_step``s on a DTensor cache under ``DECODE_RULES`` (on the
     ranks' (4, 2) mesh) give the plain run's logits and caches within 1e-5
     in float32. qwen3's cache is split over its slots by the rules (one kv
-    head), gemma3's by the test, so its ring writes land in one rank's
-    shard; falcon's Mamba cache is split over its channels."""
+    head), batch over ``data``; gemma3's over both mesh dims by
+    ``LONG_DECODE_RULES`` (its rings of 16 and global caches of 32), so its
+    ring writes land in one rank's shard; falcon's Mamba cache is split over
+    its channels."""
     got = runs["serve"][arch]
     assert max(got["prefill"]) <= 1e-5, got["prefill"]
     assert len(got["decode"]) == 3
     for step in got["decode"]:
         assert max(step) <= 1e-5, got["decode"]
-    if arch != "falcon_mamba_7b":
+    if arch == "qwen3_32b":
         assert got["cache_placements"] == ["(Shard(dim=1), Shard(dim=2))"]
+    elif arch == "gemma3_12b":
+        assert got["cache_placements"] == ["(Shard(dim=2), Shard(dim=2))"]
     else:
         assert "(Shard(dim=1), Shard(dim=3))" in got["cache_placements"]
+
+
+@pytest.mark.parametrize("arch", ["qwen3_32b", "gemma3_12b"])
+def test_slot_split_decode_never_gathers_the_slots(runs, arch):
+    """The caches split over their slots (qwen3's over ``model``, gemma3's
+    rings and global caches over both mesh dims) are attended where they lie: each
+    rank takes its slots' partial softmax and the ranks combine them
+    (flash-decoding across ranks), so no rank makes a cache tensor that
+    holds all of a layer's slots; the logits are the plain run's (the test
+    above)."""
+    got = runs["serve"][arch]
+    assert got["whole_cache"] == []
+
+
+def test_the_vocab_parallel_log_prob_matches_and_never_holds_the_vocab(runs):
+    """The label log-prob of logits split over the vocabulary (``model``)
+    and the batch (``data``), and its gradients through the head and the
+    hidden state, against the single-process run within 1e-6 of the
+    reference's largest magnitude, at a vocabulary of 200 and of 201 (split
+    unevenly, 101 and 100); no rank makes a local tensor with the whole
+    vocabulary, where the replicated ``log_softmax`` and ``gather`` on the
+    same DTensors do."""
+    for V, got in runs["port"]["vocab"].items():
+        for k in ("lp", "dx", "dhead"):
+            assert got[k] <= 1e-6, (V, k, got[k])
+        assert got["logits"] == "(Shard(dim=0), Shard(dim=2))", V
+        assert got["placements"] == "(Shard(dim=0), Replicate())", V
+        assert got["whole"] == [] and got["whole_replicated"] > 0, V
+    assert sorted(runs["port"]["vocab"]) == ["200", "201"]
 
 
 @pytest.mark.parametrize("cell", ["qwen3_32b/train", "qwen3_32b/prefill", "qwen3_32b/decode",

@@ -56,6 +56,7 @@ def _cfg(name, no_drop=False):
     (512, 128, 256, 4, 64),      # the JAX sweep (tests/test_kernels.py:86-89)
     (256, 64, 128, 8, 32),
     (128, 64, 128, 8, 16),       # the serving block_t range
+    (2560, 64, 128, 1, 64),      # one expert (a rank's under EP): 16 blocks a product
 ])
 def test_grouped_matmul_plain_matches_pallas_and_oracle(T, D, F, E, bt, dtype):
     rng = np.random.default_rng(T + D + bt)

@@ -86,8 +86,8 @@ def test_costs_count_products_pointwise_reductions_and_moved_bytes():
     x, w = torch.randn(128, 256), torch.randn(256, 512)
     cache, idx = torch.zeros(8, 64, 16), torch.tensor([1, 5, 7])
     with R.count_costs() as c:
-        y = torch.tanh(x @ w)
-    assert c.flops == 2 * 128 * 256 * 512 + 128 * 512
+        y = torch.tanh(x @ w)                            # tanh: a transcendental, not a FLOP
+    assert c.flops == 2 * 128 * 256 * 512 and c.transcendentals == 128 * 512
     assert c.bytes == 4 * (128 * 256 + 256 * 512 + 128 * 512) + 2 * 4 * 128 * 512
     with R.count_costs() as c:
         y.sum()
@@ -116,11 +116,42 @@ def test_memory_counter_follows_live_storages_to_their_peak():
     assert mem["argument_gib"] * g == 60000 and mem["peak_gib"] * g == 100000
     assert mem["output_gib"] * g == 4 and mem["alias_gib"] == 0
     assert mem["temp_gib"] * g == 100000 - 60000 - 4
-    assert cost["flops"] == 2 * 100 * 100 * 50 + 5000 + 5000 and cost["ops"] == {}
+    assert cost["flops"] == 2 * 100 * 100 * 50 + 5000 and cost["ops"] == {}
+    assert cost["transcendentals"] == 5000                # the tanh
     # an argument written in place and returned is donated: counted once
     _, _, mem = R.run_counted(lambda c: c.add_(1.0), (torch.zeros(256),), donated=(0,))
     assert mem["peak_gib"] * g == 1024 and mem["alias_gib"] * g == 1024
     assert mem["temp_gib"] == 0
+
+
+def test_the_peak_tool_names_what_is_alive_at_the_peak():
+    """``launch.peak.PeakCounter``: the first run finds the peak, the second
+    keeps the storages alive when the live bytes first reach it, summed by
+    the op and local shape that made them (the arguments apart); a storage
+    freed before the peak is not among them."""
+    from repro_torch.launch.peak import REPAIRS, PeakCounter
+    x, w = torch.randn(100, 100), torch.randn(100, 50)
+
+    def f(x, w):
+        t = torch.exp(w)          # 20000 bytes, freed before the peak
+        del t
+        y = x @ w                 # 20000
+        z = torch.tanh(y)         # 20000: the peak, 100000 with the arguments
+        del y
+        return z.sum()
+
+    target = 0
+    for _ in range(2):
+        counter = PeakCounter((x, w), target)
+        with counter:
+            f(x, w)
+        target, live = counter.peak, counter.at_peak
+    assert target == 100000
+    assert dict(live) == {("mm", (100, 50), "torch.float32"): (1, 20000),
+                          ("tanh", (100, 50), "torch.float32"): (1, 20000),
+                          ("argument", None, None): (2, 60000)}
+    assert set(REPAIRS) == {"vocab_logprob", "grad_constraint", "reduce_partial",
+                            "merge_heads"}
 
 
 def test_analyze_reports_a_small_program_end_to_end():
@@ -255,3 +286,31 @@ def test_the_report_reads_the_ports_own_artifact_directory():
     from repro_torch.launch import dryrun
     assert dryrun.ART == "artifacts/dryrun_torch" and dryrun.HBM_PER_CHIP_GIB == 80.0
     assert math.isclose(R.HBM_BW, 3.35e12) and np.isfinite(R.LINK_BW)
+
+
+def test_a_reduced_prefill_never_holds_the_whole_score_matrix():
+    """``LM.prefill`` of reduced qwen3_32b (float32, 8 heads on 1 kv head) at
+    S 4096 on the CPU runs the blocked forward over ``attn_block`` (512) row
+    pairs, as the JAX package's ``attend_blocked`` does: under the memory
+    counter its peak stays below the ``[B, KV, G, S, S]`` float32 scores
+    alone (512 MiB), the plain whole-sequence version's floor, and its
+    logits are those of a prefill whose single block is the whole
+    sequence (within 2e-4)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import reduced
+    from repro_torch.models import LM
+    cfg = replace(reduced(get_config("qwen3_32b")), dtype="float32")
+    S = 4096
+    lm = LM(cfg, device="cpu", seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator().manual_seed(3))
+    scores = cfg.num_heads * S * S * 4
+    with torch.no_grad():
+        mem = R.count_memory()
+        with mem:
+            logits, _ = lm.prefill({"tokens": tokens})
+        assert 0 < mem.peak < scores / 4, (mem.peak, scores)
+        whole = LM(cfg, device="cpu", seed=0, attn_block=S)
+        whole.load_state_dict(lm.state_dict())
+        want, _ = whole.prefill({"tokens": tokens})
+    torch.testing.assert_close(logits, want, rtol=2e-4, atol=2e-4)

@@ -31,8 +31,10 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.models.mamba import _ssm_chunk_scan  # noqa: E402
 from repro_torch.configs import ModelConfig  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.mamba_scan import mamba_scan_plain, state_chunk  # noqa: E402
-from repro_torch.kernels.mamba_scan_bwd import block_channels, mamba_scan_bwd_plain  # noqa: E402
+from repro_torch.kernels.mamba_scan import (associative_scan, mamba_scan_chunked,  # noqa: E402
+                                            mamba_scan_plain, state_chunk)
+from repro_torch.kernels.mamba_scan_bwd import (ScanGrads, block_channels,  # noqa: E402
+                                                mamba_scan_bwd_chunked, mamba_scan_bwd_plain)
 from repro_torch.kernels.moe_gmm import grouped_matmul_bwd_plain, grouped_matmul_plain  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 
@@ -138,14 +140,47 @@ def test_ops_mamba_scan_function_matches_autograd_through_the_plain_forward(N, w
         outs[name] = (y.detach(), h.detach(), torch.autograd.grad(loss, leaves))
     yf, hf, gf = outs["function"]
     yp, hp, gp = outs["plain"]
-    assert torch.equal(yf, yp) and torch.equal(hf, hp)
+    # the Function's CPU forward is the chunked scan: bit-equal to it, and
+    # within the gradient tolerance of the sequential one autograd runs through
+    cy, ch = mamba_scan_chunked(*(t.detach() if t is not None else None for t in ins[:7]))
+    assert torch.equal(yf, cy) and torch.equal(hf, ch)
+    _close(yf, yp, "y")
+    _close(hf, hp, "h")
     assert len(gf) == 6 + with_h0
     for i, (a, b) in enumerate(zip(gf, gp)):
         _close(a, b, str(i))
     with torch.no_grad():      # the engine's call saves nothing and keeps its route
         y0, h0_ = ops.mamba_scan(*map(torch.as_tensor, (dt, x, B, C, A, D)))
-    assert y0.grad_fn is None and torch.equal(y0, mamba_scan_plain(
+    assert y0.grad_fn is None and torch.equal(y0, mamba_scan_chunked(
         *map(torch.as_tensor, (dt, x, B, C, A, D)))[0])
+
+
+@pytest.mark.parametrize("used", [None, 24, 40], ids=["all_blocks", "used_24", "used_all"])
+def test_gmm_bwd_plain_with_one_expert_matches_vjp_of_the_reference(used):
+    """A rank's one expert under expert parallelism: 16 blocks a product,
+    dx and dW against ``jax.vjp`` of ``grouped_matmul_ref``; with
+    ``used_blocks`` (x and dy zero past it, as promised) the same dx and dW
+    and zeros in dx past it."""
+    T, D, F, bt = 40 * 16, 16, 24, 16
+    rng = np.random.default_rng(used or 1)
+    x = rng.standard_normal((T, D)).astype(np.float32)
+    dy = rng.standard_normal((T, F)).astype(np.float32)
+    if used is not None:
+        x[used * bt:] = 0.0
+        dy[used * bt:] = 0.0
+    w = rng.standard_normal((1, D, F)).astype(np.float32)
+    bmap = np.zeros(T // bt, np.int32)
+    _, vjp = jax.vjp(lambda x_, w_: jref.grouped_matmul_ref(x_, w_, jnp.asarray(bmap), bt),
+                     jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(dy))
+    ub = None if used is None else torch.tensor([used], dtype=torch.int32)
+    dx, dw = grouped_matmul_bwd_plain(torch.as_tensor(x), torch.as_tensor(w),
+                                      torch.as_tensor(dy), torch.as_tensor(bmap), bt,
+                                      used_blocks=ub)
+    _close(dx, want_dx, "dx")
+    _close(dw, want_dw, "dw")
+    if used is not None:
+        assert float(dx[used * bt:].abs().max() if used * bt < T else 0.0) == 0.0
 
 
 def _layout(B, S, E, k, cf, seed, block_t=None, skip_expert=None):
@@ -357,3 +392,130 @@ def test_state_chunk_keeps_a_chunk_of_64_channels_in_128_kb():
         assert state_chunk(N) * N * block_channels(N) * 4 <= 64 * 1024
         assert 2 * 256 * per_thread * 4 <= 128 * 1024
         assert (16 if N == 32 else 32) % state_chunk(N) == 0
+
+
+# ---------------------------------------------------------------------------
+# The chunked scan: the CPU path (the JAX model's _ssm_chunk_scan)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 2, 3, 37, 100, 256])
+def test_associative_scan_is_the_sequential_fold(n):
+    """Every prefix of ``(a, b)`` under ``(al ar, bl ar + br)`` in float64,
+    at lengths that are powers of two and lengths padded to one, against a
+    step-by-step fold; the inputs are left as they were."""
+    rng = np.random.default_rng(n)
+    a = torch.as_tensor(rng.uniform(0.5, 1.0, (2, n, 3, 4)))
+    b = torch.as_tensor(rng.standard_normal((2, n, 3, 4)))
+    a0, b0 = a.clone(), b.clone()
+    got_a, got_b = associative_scan(a, b)
+    ca, cb = torch.ones_like(a[:, 0]), torch.zeros_like(b[:, 0])
+    for t in range(n):
+        ca, cb = ca * a[:, t], cb * a[:, t] + b[:, t]
+        torch.testing.assert_close(got_a[:, t], ca, rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(got_b[:, t], cb, rtol=1e-12, atol=1e-12)
+    assert torch.equal(a, a0) and torch.equal(b, b0)
+
+
+CHUNKED_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def _chunked_close(got, want, dtype, name=""):
+    tol = CHUNKED_TOL[dtype]
+    np.testing.assert_allclose(np.asarray(got.float(), np.float32),
+                               np.asarray(want.float() if isinstance(want, torch.Tensor)
+                                          else want, np.float32),
+                               rtol=tol, atol=tol, err_msg=name)
+
+
+# (Bt, S, DI, N, block): S past one block of 256 and not a multiple of it
+# (one chunk of S, as in JAX), two blocks of 256, and small blocks for many
+# chunks; the saved states every 16 steps in each
+CHUNKED = [(1, 300, 8, 16, 256), (1, 512, 4, 8, 256), (2, 96, 8, 4, 32), (2, 48, 6, 32, 16)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bt,S,DI,N,block", CHUNKED)
+def test_chunked_scan_matches_the_sequential_one_and_the_jax_chunk_scan(Bt, S, DI, N, block,
+                                                                        dtype):
+    dt, x, B, C, A, D, h0, _, _ = _scan_inputs(Bt, S, DI, N, S + block)
+    dt = dt * 0.2
+    t = [torch.as_tensor(a).to(getattr(torch, dtype)) for a in (dt, x, B, C)]
+    A_, D_, h0_ = map(torch.as_tensor, (A, D, h0))
+    Tc = state_chunk(N)
+    y, h, st = mamba_scan_chunked(*t, A_, D_, h0_, chunk=Tc, block=block)
+    assert y.dtype == t[1].dtype and h.dtype == st.dtype == torch.float32
+    assert tuple(st.shape) == (Bt, -(-S // Tc), DI, N)
+    py, ph, pst = mamba_scan_plain(*t, A_, D_, h0_, chunk=Tc)
+    _chunked_close(y, py, dtype, "y")
+    _chunked_close(h, ph, dtype, "h_S")
+    _chunked_close(st, pst, dtype, "states")
+    # the JAX model's scan on the same (rounded) inputs, D x added outside
+    j = [jnp.asarray(a.float().numpy()) for a in t]
+    bx = (t[0] * t[1]).float().numpy()            # the port rounds dt x to the inputs' type
+    jy, jh = _ssm_chunk_scan(j[0], jnp.asarray(bx) / j[0], j[2], j[3], jnp.asarray(A),
+                             jnp.asarray(h0), block)
+    if dtype == "float32":
+        jy, jh = _ssm_chunk_scan(j[0], j[1], j[2], j[3], jnp.asarray(A), jnp.asarray(h0), block)
+    _chunked_close(y, jy + j[1] * jnp.asarray(D), dtype, "y vs jax")
+    _chunked_close(h, jh, dtype, "h_S vs jax")
+    y2, h2 = mamba_scan_chunked(*t, A_, D_, h0_, block=block)
+    assert torch.equal(y, y2) and torch.equal(h, h2)       # the states change nothing
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bt,S,DI,N,block", CHUNKED)
+def test_chunked_scan_bwd_matches_the_sequential_one_and_jax_grad(Bt, S, DI, N, block, dtype):
+    """Every gradient, h0 and dh_S included, against the sequential backward
+    on the same saved states and (float32) against ``jax.vjp`` of
+    ``_ssm_chunk_scan`` at the same block."""
+    dt, x, B, C, A, D, h0, dy, dh_S = _scan_inputs(Bt, S, DI, N, 3 * S + block)
+    dt = dt * 0.2
+    cast = lambda a: torch.as_tensor(a).to(getattr(torch, dtype)).float()  # noqa: E731
+    t = [cast(a) for a in (dt, x, B, C)] + [torch.as_tensor(A), torch.as_tensor(D)]
+    Tc = state_chunk(N)
+    _, _, states = mamba_scan_chunked(*t, torch.as_tensor(h0), chunk=Tc, block=block)
+    args = (*t, states, torch.as_tensor(dy), torch.as_tensor(dh_S))
+    g = mamba_scan_bwd_chunked(*args, chunk=Tc, block=block)
+    want = mamba_scan_bwd_plain(*args, chunk=Tc)
+    for name, got, w in zip(ScanGrads._fields, g, want):
+        assert got.shape == w.shape and np.isfinite(got.numpy()).all(), name
+        _chunked_close(got, w, dtype, name)
+    if dtype == "float32":
+        fn = lambda dt, x, B, C, A, h0: _ssm_chunk_scan(dt, x, B, C, A, h0, block)  # noqa: E731
+        _, vjp = jax.vjp(fn, *map(jnp.asarray, (dt, x, B, C, A, h0)))
+        jg = vjp((jnp.asarray(dy), jnp.asarray(dh_S)))
+        D_term = {"dx": D * dy, "ddt": 0.0}
+        for name, w in zip(("ddt", "dx", "dB", "dC", "dA", "dh0"), jg):
+            _chunked_close(getattr(g, name), np.asarray(w) + D_term.get(name, 0.0), dtype, name)
+
+
+class _OpCount(torch.utils._python_dispatch.TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_cpu_scan_and_its_backward_dispatch_ops_by_the_chunk_not_the_step():
+    """One ``ops.mamba_scan`` under autograd and its backward at S 4096 (16
+    blocks of 256): at most 800 dispatched ops a block (~400 measured), the count of 16
+    blocks twice that of 8; the step-by-step pair (``mamba_scan_plain`` and
+    ``mamba_scan_bwd_plain``) dispatches over 10 times as many."""
+    def count(S):
+        dt, x, B, C, A, D, _, dy, _ = _scan_inputs(1, S, 4, 4, 5)
+        leaves = _leaves(dt * 0.2, x, B, C, A, D)
+        with _OpCount() as c:
+            y, h = ops.mamba_scan(*leaves)
+            torch.autograd.grad((y * torch.as_tensor(dy)).sum(), leaves)
+        return c.n
+    n8, n16 = count(2048), count(4096)
+    assert n16 <= 800 * 16, n16
+    assert abs(n16 - 2 * n8) <= 0.05 * n16, (n8, n16)
+    dt, x, B, C, A, D, _, dy, _ = map(torch.as_tensor, _scan_inputs(1, 256, 4, 4, 5))
+    with _OpCount() as c:             # the step-by-step pair over one block
+        _, _, states = mamba_scan_plain(dt, x, B, C, A, D, chunk=16)
+        mamba_scan_bwd_plain(dt, x, B, C, A, D, states, dy, chunk=16)
+    assert c.n * 16 > 10 * n16, (c.n, n16)
