@@ -107,7 +107,7 @@ imports nothing of JAX. Phases, each of which fails the run:
    ``(1, 1)`` ``("data", "model")`` mesh, on which the launcher takes the
    mesh path although one device shards nothing (DTensor parameters and
    optimizer state placed by the sharding rules, ``shard_act``, every
-   kernel through ``local_map``): ``train_100m`` at full width and depth
+   kernel through ``ops.run_local``): ``train_100m`` at full width and depth
    through ``launch/train.py`` (10 steps of 8 x 1024 tokens, 2
    microbatches, a sharded checkpoint every 5 steps, then a run resumed
    from step 5 whose losses equal the first run's bit for bit), and 3 f32

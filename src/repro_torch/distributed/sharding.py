@@ -334,6 +334,118 @@ def local_ranges(shape: Sequence[int], mesh, placements, coord: Sequence[int]
     return tuple(ranges)
 
 
+def chunk_sizes(n: int, k: int) -> list:
+    """The lengths of ``n`` items split ``k`` ways as DTensor splits a dim
+    (``torch.chunk``: parts of ``ceil(n / k)``, the last ones shorter or
+    empty)."""
+    part = -(-n // k)
+    return [max(0, min(part, n - r * part)) for r in range(k)]
+
+
+def redistribute(t, placements):
+    """DTensor ``t`` redistributed to ``placements`` on its mesh, where a
+    mesh dim's split that moves from tensor dim a to tensor dim b
+    (``Shard(a)`` to ``Shard(b)``) moves by all-to-all: each rank of that
+    mesh dim sends every other one the piece of its shard that the other
+    will hold, so no rank holds more than a shard before, during or after
+    the move. DTensor's own move gathers the whole tensor on a rank and
+    chunks it wherever the mesh is on the CPU (the gloo and the fake
+    groups), though both groups have the all-to-all. Uneven splits move as
+    DTensor lays them out (:func:`chunk_sizes`).
+
+    Every other change is ``DTensor.redistribute``, made first. The moves
+    go innermost mesh dim first. Where a later mesh dim also splits a or b
+    (the pieces would cross it too), that split steps aside to a third
+    dim for the move, by all-to-all, and back after it; a tensor with no
+    third dim, or a split that cannot step aside, moves by
+    ``DTensor.redistribute``. A move over a mesh dim of one rank is a
+    relabelling. Under autograd the pieces move by
+    ``all_to_all_single_autograd``, whose gradient moves back the same way
+    after it is laid out as ``placements`` (a ``Partial`` gradient reduced
+    there); with no move, the result and its gradient are
+    ``DTensor.redistribute``'s."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = t.device_mesh
+    src, dst = tuple(t.placements), tuple(placements)
+    if src == dst:
+        return t
+    moves = [i for i, (p, q) in enumerate(zip(src, dst))
+             if isinstance(p, Shard) and isinstance(q, Shard) and p.dim != q.dim]
+    cur = [src[i] if i in moves else dst[i] for i in range(mesh.ndim)]
+    if tuple(cur) != src:
+        t = t.redistribute(mesh, cur)
+    if not moves:               # DTensor's own, backward too (a Partial gradient reduced once)
+        return t
+    shape, stride, local = t.shape, t.stride(), t.to_local()
+
+    def move(i, b):
+        """``local`` with mesh dim i's split moved to tensor dim b."""
+        nonlocal local, stride
+        a = cur[i].dim
+        if mesh.size(i) > 1:
+            outer = [p if j < i else None for j, p in enumerate(cur)]
+            local = _all_to_all(local, a, b, mesh, i, _outer_length(shape, mesh, outer, a))
+            stride = contiguous_stride(shape)             # the moved shard is contiguous
+        cur[i] = Shard(b)
+
+    for i in reversed(moves):                   # the innermost mesh dim first
+        a, b = src[i].dim, dst[i].dim
+        aside = [k for k in range(i + 1, mesh.ndim) if _splits(cur[k], (a, b))]
+        free = [c for c in range(len(shape)) if c not in (a, b)
+                and not any(_splits(p, (c,)) for p in cur[i + 1:])]
+        if not aside:
+            move(i, b)
+        elif len(aside) == 1 and free:
+            k, back = aside[0], cur[aside[0]].dim
+            move(k, free[0])
+            move(i, b)
+            move(k, back)
+        else:
+            t = DTensor.from_local(local, mesh, cur, run_check=False, shape=shape, stride=stride)
+            cur[i] = dst[i]
+            t = t.redistribute(mesh, cur)
+            local, stride = t.to_local(), t.stride()
+    return DTensor.from_local(local, mesh, dst, run_check=False, shape=shape, stride=stride)
+
+
+def _splits(p, dims) -> bool:
+    from torch.distributed.tensor import Shard
+    return isinstance(p, Shard) and p.dim in dims
+
+
+def _outer_length(shape, mesh, placements, dim: int) -> int:
+    """The length of tensor dim ``dim`` on this rank under ``placements``
+    (None where a mesh dim is left out)."""
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if p is None else p for p in placements]
+    a, b = local_ranges(shape, mesh, pl, mesh.get_coordinate())[dim]
+    return b - a
+
+
+def _all_to_all(local: torch.Tensor, a: int, b: int, mesh, i: int, n_a: int) -> torch.Tensor:
+    """``local`` (a rank's shard, whose dim a is split over mesh dim ``i``
+    out of ``n_a`` and dim b is not) as the shard whose dim b is split over
+    mesh dim ``i`` and dim a is whole: one all-to-all over that mesh dim of
+    the flattened pieces (rank r's piece: its rows of b's r-th chunk)."""
+    import torch.distributed._functional_collectives as funcol
+    k, me = mesh.size(i), mesh.get_local_rank(i)
+    sa, sb = chunk_sizes(n_a, k), chunk_sizes(local.shape[b], k)
+    send = local.movedim(b, 0).contiguous()
+    rest = list(send.shape[1:])
+    pos = a + 1 if a < b else a                  # a's place in ``send``'s dims
+    per_row = math.prod(rest)
+    shapes = [[sb[me]] + rest[:pos - 1] + [sa[r]] + rest[pos:] for r in range(k)]
+    in_splits = [s * per_row for s in sb]
+    out_splits = [math.prod(sh) for sh in shapes]
+    fn = (funcol.all_to_all_single_autograd if torch.is_grad_enabled() and local.requires_grad
+          else funcol.all_to_all_single)
+    got = fn(send.reshape(-1), out_splits, in_splits, (mesh, i))
+    if isinstance(got, funcol.AsyncCollectiveTensor):
+        got = got.wait()
+    pieces = [p.reshape(sh) for p, sh in zip(torch.split(got, out_splits), shapes)]
+    return torch.cat(pieces, pos).movedim(0, b).contiguous()
+
+
 def is_meshed(*ts) -> bool:
     """Whether any of ``ts`` is a DTensor (without importing DTensor when
     nothing has)."""
@@ -382,12 +494,20 @@ def place(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     mesh, pl = sharding.mesh, sharding.placements
     sl = tuple(slice(a, b) for a, b in local_ranges(t.shape, mesh, pl, mesh.get_coordinate()))
     local = torch.as_tensor(t)[sl].to(mesh_device(mesh)).contiguous()
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        local = local.clone()    # a contiguous slice is a view that would hold all of t
     return DTensor.from_local(local, mesh, pl, run_check=False, shape=t.shape,
-                              stride=_stride(t.shape))
+                              stride=contiguous_stride(t.shape))
 
 
-def _stride(shape) -> tuple:
-    return torch.empty(shape, device="meta").stride()
+def contiguous_stride(shape) -> tuple:
+    """The contiguous strides of ``shape`` (as ``torch.empty`` gives them,
+    with no op that a dispatch mode would see)."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= max(d, 1)
+    return tuple(reversed(out))
 
 
 def make_resolver(mesh, rules: RuleTable):
@@ -432,5 +552,5 @@ def with_shardings(spec_tree, shardings_tree):
         loc = local_ranges(s.shape, sh.mesh, pl, sh.mesh.get_coordinate())
         local = torch.empty([b - a for a, b in loc], dtype=s.dtype, device="meta")
         return DTensor.from_local(local, sh.mesh, pl, run_check=False, shape=s.shape,
-                                  stride=_stride(s.shape))
+                                  stride=contiguous_stride(s.shape))
     return _map_pair(one, spec_tree, shardings_tree)

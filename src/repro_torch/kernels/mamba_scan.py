@@ -152,6 +152,10 @@ def mamba_scan_chunked(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor, C: to
             states += [h[:, None], h_all[:, chunk - 1:c - 1:chunk]]
         ys.append((h_all * C32[:, sl, None, :]).sum(-1))
         h = h_all[:, -1]
+    # the final state as a tensor of its own: a view would keep the last
+    # chunk's [Bt, c, DI, N] states alive in the caller's cache, which the
+    # JAX scan's carry does not hold
+    h = h.clone()
     y = torch.cat(ys, 1) + x.float() * D.float()
     if chunk:
         return y.to(x.dtype), h, torch.cat(states, 1)

@@ -17,14 +17,16 @@ nothing.
 
 Every dispatch function also takes DTensors (a model on a device mesh). The
 kernel, or on the CPU its plain version, then runs on each rank's local
-shards through ``local_map``: the inputs are redistributed to what the
-kernel can take on its own (batch and heads, or batch and channels, split
-over mesh dims; the sequence, head dim and state whole), the outputs carry
-the placements that follows from that, and an input replicated over a mesh
-dim that splits the work gets a ``Partial`` gradient there. The autograd
-Functions (here and ``models.attention._AttendBlocked``) see local tensors
-only. Where a rank's q heads map to kv heads that are not split with them
-(GQA with ``KV % mesh != 0``), each rank takes the kv heads its q heads read.
+shards (:func:`run_local`, ``local_map``'s form): the inputs are
+redistributed to what the kernel can take on its own (batch and heads, or
+batch and channels, split over mesh dims; the sequence, head dim and state
+whole), the outputs carry the placements that follows from that, and an
+input replicated over a mesh dim that splits the work gets a ``Partial``
+gradient there. The autograd Functions (here and
+``models.attention._AttendBlocked``) see local tensors only. Where a rank's
+q heads map to kv heads that are not split with them (GQA with ``KV % mesh
+!= 0``), each rank takes the kv heads its q heads read; q's heads may split
+unevenly (``models.attention._split_heads``).
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import is_meshed, mesh_of, placed, shard_dims, split_range
+from repro_torch.distributed.sharding import (contiguous_stride, is_meshed, mesh_of, placed,
+                                              redistribute, shard_dims, split_range)
 from repro_torch.kernels import block_of
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -48,26 +51,53 @@ from repro_torch.kernels import moe_gmm as _gmm
 # DTensor inputs: the kernels on local shards
 # ---------------------------------------------------------------------------
 
-def run_local(fn, mesh, args, in_pl, out_pl):
+def run_local(fn, mesh, args, in_pl, out_pl, out_shapes=None):
     """``fn`` on the local shards of ``args`` (placements ``in_pl``, None
-    for what is not a tensor), its outputs DTensors of ``out_pl``. A plain
-    tensor among ``args`` is taken as replicated. An input's gradient keeps
-    its shards and is ``Partial`` on every mesh dim that shards any input."""
+    for what is not a tensor), its outputs DTensors of ``out_pl`` (a tuple
+    of placements where ``fn`` gives several outputs) and of the global
+    shapes ``out_shapes`` (the same nesting; None: as if split evenly,
+    which an uneven head split is not). A plain tensor among ``args`` is
+    taken as replicated. The inputs move to ``in_pl`` by
+    ``sharding.redistribute`` (a split moved between dims by all-to-all).
+    An input's gradient keeps its shards and is ``Partial`` on every mesh
+    dim that shards any input (``local_map``'s ``in_grad_placements``)."""
+    from torch.distributed._functional_collectives import AsyncCollectiveTensor
     from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    args = [DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
-            if isinstance(a, torch.Tensor) and not isinstance(a, DTensor) and pl is not None
-            else a for a, pl in zip(args, in_pl)]
     split = [any(pl is not None and isinstance(pl[i], Shard) for pl in in_pl)
              for i in range(mesh.ndim)]
-    grad_pl = tuple(None if pl is None else tuple(
-        p if isinstance(p, Shard) else (Partial() if split[i] else Replicate())
-        for i, p in enumerate(pl)) for pl in in_pl)
-    if all(isinstance(p, Placement) for p in out_pl):
-        out_pl = list(out_pl)              # one output (a tuple means several)
-    return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
-                     in_grad_placements=grad_pl, device_mesh=mesh,
-                     redistribute_inputs=True)(*args)
+    local = []
+    for a, pl in zip(args, in_pl):
+        if pl is None or not isinstance(a, torch.Tensor):
+            local.append(a)
+            continue
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        grad_pl = tuple(p if isinstance(p, Shard) else (Partial() if split[i] else Replicate())
+                        for i, p in enumerate(pl))
+        t = redistribute(a, pl).to_local(grad_placements=grad_pl)
+        local.append(t.wait() if isinstance(t, AsyncCollectiveTensor) else t)
+    out = fn(*local)
+    one = all(isinstance(p, Placement) for p in out_pl)
+    outs, pls = ((out,), (out_pl,)) if one else (out, out_pl)
+    shapes = (out_shapes,) if one else (out_shapes or (None,) * len(pls))
+    res = tuple(o if o is None else _from_local(o, mesh, pl, sh)
+                for o, pl, sh in zip(outs, pls, shapes))
+    return res[0] if one else res
+
+
+def _from_local(t: torch.Tensor, mesh, pl, shape):
+    """A DTensor of the local ``t`` under ``pl``, of the global ``shape``
+    where that is not what an even split gives (an uneven one's, made
+    contiguous to carry a contiguous global stride)."""
+    from torch.distributed.tensor import DTensor, Shard
+    even = list(t.shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            even[p.dim] *= mesh.size(i)
+    if shape is None or tuple(shape) == tuple(even):
+        return DTensor.from_local(t, mesh, pl, run_check=False)
+    return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=contiguous_stride(shape))
 
 
 def all_reduce(t: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
@@ -89,7 +119,10 @@ def with_partial(pl, dims) -> tuple:
 def _kv_for_heads(k: torch.Tensor, h0: int, hl: int, group: int) -> torch.Tensor:
     """The kv heads that q heads ``[h0, h0 + hl)`` read (q head h reads kv
     head ``h // group``), laid out so that local head i reads local kv head
-    ``i // (hl / kv_local)``."""
+    ``i // (hl / kv_local)``; none where ``hl`` is 0 (an uneven split's
+    empty share)."""
+    if hl == 0:
+        return k[:, :, :0]
     if group % hl == 0:
         return k[:, :, h0 // group:h0 // group + 1]
     if hl % group == 0 and h0 % group == 0:
@@ -97,34 +130,31 @@ def _kv_for_heads(k: torch.Tensor, h0: int, hl: int, group: int) -> torch.Tensor
     return k.repeat_interleave(group, dim=2)[:, :, h0:h0 + hl]
 
 
-def attention_plan(q, k, *, head_dim: int, kv_dim: int, exact_heads: bool = False,
-                   batch_of=None):
+def attention_plan(q, k, *, head_dim: int, kv_dim: int, batch_of=None):
     """Placements for an attention kernel on local shards: q's batch (dim 0)
-    and heads (``head_dim``) stay split where q has them split; the kv
-    tensors split batch with q, and heads with q where their count divides
-    the split (else they are whole and each rank takes its q heads' kv
-    heads). Everything else is whole. Returns (mesh, q placements, kv
-    placements, the q-head mesh dims where kv is whole). ``exact_heads``:
-    keep a head split only where kv splits with it (for outputs laid out
-    by kv head, as the logsumexp is). ``batch_of``: the tensor whose batch
-    split q and kv take (decode: the cache, so that q is sliced to the
-    cache's rows rather than the cache gathered to q's)."""
+    and heads (``head_dim``) stay split where q has them split, evenly or
+    not (7 heads over 2 ranks: 4 and 3); the kv tensors split batch with q,
+    and heads with q where their count divides the split (else they are
+    whole and each rank takes its q heads' kv heads, :func:`local_heads`).
+    Everything else is whole. Returns (mesh, q placements, kv placements,
+    the q-head mesh dims where kv is whole). ``batch_of``: the tensor whose
+    batch split q and kv take (decode: the cache, so that q is sliced to
+    the cache's rows rather than the cache gathered to q's)."""
     mesh = mesh_of(q, k)
     bdims = shard_dims(q if batch_of is None else batch_of, 0)
     hdims = [i for i in shard_dims(q, head_dim) if i not in bdims]
-    KV = k.shape[kv_dim]
     n = math.prod(mesh.size(i) for i in hdims)
-    kv_split = KV % n == 0
-    if exact_heads and not kv_split:
-        hdims = []
+    kv_split = k.shape[kv_dim] % n == 0
     qpl = placed(mesh, {0: bdims, head_dim: hdims})
     kvpl = placed(mesh, {0: bdims, kv_dim: hdims if kv_split else []})
     return mesh, qpl, kvpl, ([] if kv_split else hdims)
 
 
-def local_heads(fn, mesh, hdims, H, KV, kv_args: Sequence[int]):
+def local_heads(fn, mesh, hdims, H, KV, kv_args: Sequence[int], kv_grads: Sequence[int] = ()):
     """``fn`` with the kv arguments cut to the kv heads of this rank's q
-    heads, where q's heads are split over ``hdims`` and kv's are whole."""
+    heads, where q's heads are split over ``hdims`` and kv's are whole; the
+    outputs ``kv_grads`` (gradients of the cut kv heads) are laid back into
+    all KV heads, zeros where this rank's q heads read none."""
     if not hdims:
         return fn
     h0, h1 = split_range(mesh, hdims, H)
@@ -134,8 +164,31 @@ def local_heads(fn, mesh, hdims, H, KV, kv_args: Sequence[int]):
         a = list(a)
         for i in kv_args:
             a[i] = _kv_for_heads(a[i], h0, h1 - h0, group)
-        return fn(*a)
+        out = fn(*a)
+        if not kv_grads:
+            return out
+        out = list(out)
+        for i in kv_grads:
+            out[i] = _kv_grad_for_heads(out[i], KV, h0, h1 - h0, group)
+        return tuple(out)
     return local
+
+
+def _kv_grad_for_heads(g: torch.Tensor, KV: int, h0: int, hl: int, group: int) -> torch.Tensor:
+    """The adjoint of :func:`_kv_for_heads`: ``g``, the gradient of the kv
+    heads that q heads ``[h0, h0 + hl)`` read, as a gradient of all ``KV``
+    heads (dim 2)."""
+    out = g.new_zeros(g.shape[:2] + (KV,) + g.shape[3:])
+    if hl == 0:                          # an uneven split's empty share reads none
+        return out
+    if group % hl == 0:
+        out[:, :, h0 // group] = g[:, :, 0]
+    elif hl % group == 0 and h0 % group == 0:
+        out[:, :, h0 // group:(h0 + hl) // group] = g
+    else:
+        idx = torch.arange(h0, h0 + hl, device=g.device) // group
+        out.index_add_(2, idx, g)
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -149,7 +202,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fn = local_heads(lambda q, k, v: flash_attention(q, k, v, causal=causal, window=window,
                                                          block=block),
                          mesh, hdims, q.shape[2], k.shape[2], (1, 2))
-        return run_local(fn, mesh, [q, k, v], [qpl, kvpl, kvpl], qpl)
+        return run_local(fn, mesh, [q, k, v], [qpl, kvpl, kvpl], qpl, q.shape)
+    if not q.shape[2]:                   # a rank's empty share of an uneven head split
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return _flash_bwd.attend_fwd_plain(q, k, v, causal=causal, window=window,
                                            block=block_of(q.shape[1], block))[0]
@@ -161,14 +216,22 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         block: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse [B,S,KV,G] float32), the forward of training: kernel B1 with
     its logsumexp on the card; on the CPU the blocked forward over ``block``
-    rows (the JAX package's ``_attend_fwd_impl``). On DTensors, q's heads stay
-    split only where kv's split with them (lse is laid out by kv head)."""
+    rows (the JAX package's ``_attend_fwd_impl``). On DTensors, split as
+    :func:`flash_attention` splits (q's heads stay split where kv's do not
+    split with them), and the lse is ``[B, S, H]``, the same storage as
+    ``[B, S, KV, G]`` flattened, so that it splits with q's heads; each rank
+    runs the kernel on its ``[B, S, KVl, Gl]``."""
     if is_meshed(q, k, v):
-        mesh, qpl, kvpl, _ = attention_plan(q, k, head_dim=2, kv_dim=2, exact_heads=True)
-        # lse [B,S,KV,G]: q's head split is its KV split here
-        return run_local(lambda q, k, v: flash_attention_lse(q, k, v, causal=causal,
-                                                             window=window, block=block),
-                         mesh, [q, k, v], [qpl, kvpl, kvpl], (qpl, qpl))
+        mesh, qpl, kvpl, hdims = attention_plan(q, k, head_dim=2, kv_dim=2)
+
+        def local(q, k, v):
+            out, lse = flash_attention_lse(q, k, v, causal=causal, window=window, block=block)
+            return out, lse.flatten(2)
+        fn = local_heads(local, mesh, hdims, q.shape[2], k.shape[2], (1, 2))
+        return run_local(fn, mesh, [q, k, v], [qpl, kvpl, kvpl], (qpl, qpl),
+                         (q.shape, q.shape[:3]))
+    if not q.shape[2]:
+        return torch.empty_like(q), q.new_empty(q.shape[:2] + (0, 1), dtype=torch.float32)
     if q.device.type == "cpu":
         return _flash_bwd.attend_fwd_plain(q, k, v, causal=causal, window=window, block=block)
     return _flash.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
@@ -179,13 +242,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                         window: int = 0, block: int = 512) -> _flash_bwd.Grads:
     """(dq, dk, dv): kernel B1b on the card; on the CPU the JAX package's
     ``_attend_bwd_impl`` over ``block``-row block pairs. On DTensors, as
-    :func:`flash_attention_lse` splits them."""
+    :func:`flash_attention_lse` splits them and gives the lse (``[B, S,
+    H]``); where kv is whole, each rank's dk and dv are its q heads' share,
+    ``Partial`` over the mesh dims that split q's heads."""
     if is_meshed(q, k, v, out, lse, dout):
-        mesh, qpl, kvpl, _ = attention_plan(q, k, head_dim=2, kv_dim=2, exact_heads=True)
-        return run_local(lambda *a: tuple(flash_attention_bwd(*a, causal=causal, window=window,
-                                                              block=block)),
-                         mesh, [q, k, v, out, lse, dout], [qpl, kvpl, kvpl, qpl, qpl, qpl],
-                         (qpl, kvpl, kvpl))
+        mesh, qpl, kvpl, hdims = attention_plan(q, k, head_dim=2, kv_dim=2)
+
+        def local(q, k, v, out, lse, dout):
+            lse = lse.unflatten(2, (k.shape[2], -1))
+            return tuple(flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                             window=window, block=block))
+        fn = local_heads(local, mesh, hdims, q.shape[2], k.shape[2], (1, 2), (1, 2))
+        dkv = with_partial(kvpl, hdims)
+        return run_local(fn, mesh, [q, k, v, out, lse, dout], [qpl, kvpl, kvpl, qpl, qpl, qpl],
+                         (qpl, dkv, dkv), (q.shape, k.shape, v.shape))
+    if not q.shape[2]:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     if q.device.type == "cpu":
         return _flash_bwd.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
                                                     window=window, block=block)
@@ -210,7 +282,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         fn = local_heads(lambda q, k, v, p: decode_attention(q, k, v, p, ring=ring),
                          mesh, hdims, q.shape[1], k_cache.shape[2], (1, 2))
         return run_local(fn, mesh, [q, k_cache, v_cache, positions], [qpl, kvpl, kvpl, ppl],
-                         qpl)
+                         qpl, q.shape)
+    if not q.shape[1]:
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return _decode.decode_attention_plain(q, k_cache, v_cache, positions, ring=ring)
     return _decode.decode_attention(q, k_cache, v_cache, positions, ring=ring)
@@ -246,7 +320,8 @@ def _decode_slot_split(q, k_cache, v_cache, positions, ring: bool, sdims) -> tor
                           mesh, sdims)                                  # [B, H, hd + 1]
         return (sums[..., :-1] / torch.clamp_min(sums[..., -1:], 1e-30)).to(q.dtype)
 
-    return run_local(local, mesh, [q, k_cache, v_cache, positions], [qpl, kvpl, kvpl, ppl], qpl)
+    return run_local(local, mesh, [q, k_cache, v_cache, positions], [qpl, kvpl, kvpl, ppl], qpl,
+                     q.shape)
 
 
 def _records(*ts) -> bool:

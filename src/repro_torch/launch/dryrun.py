@@ -29,16 +29,23 @@ Modes (``build_cell``): ``train``, the train step of ``make_train_step``
 with the config's optimizer and its ``state_axes``; ``prefill``, with the
 encoder case (full-sequence logits, no cache); ``decode`` and
 ``long_decode``, the cache donated (written in place). Eager PyTorch runs
-every layer, so the whole depth is counted directly (no shallow probes).
+every layer, so the whole depth's costs are counted directly (no shallow
+probes).
 A train step of ``accum`` microbatches runs two of them (one where
 ``accum`` is 1): its peak is that of every later microbatch, and its costs
 up to the mean gradients are scaled to ``accum`` microbatches, the
 optimizer's update counted once (``probe_costs``).
 
+A cell past 8192 tokens runs its attention in blocks of 2048 rows
+(``attn_block``), as the JAX dry run probes its costs; its peak is then
+taken at the JAX model's 512 rows by two shallow probes extrapolated in
+depth (:func:`probe_peak`), as the JAX dry run takes its memory at 512.
+
 An artifact (``<out>/<arch>__<shape>__<mesh>.json``) keeps the JAX
 package's keys: ``lower_s`` is the seconds to build the cell, ``compile_s``
-those of the counted run and ``probe_s`` 0 (the costs come from that run),
-all of the host's CPU, not of the card.
+those of the counted run and ``probe_s`` those of the peak's probes (0
+where the counted run gives the peak), all of the host's CPU, not of the
+card.
 """
 from __future__ import annotations
 
@@ -54,15 +61,17 @@ import torch
 
 from repro_torch.configs import SHAPES, applicable_shapes, assigned_archs, get_config
 from repro_torch.distributed.sharding import (NamedSharding, make_resolver, mesh_shape,
-                                              resolve_spec, rules_for_cfg, tree_shardings)
+                                              redistribute, resolve_spec, rules_for_cfg,
+                                              tree_shardings)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.train import flat_axes, place_tree, setup_training
 from repro_torch.models.layers import sharding_context
-from repro_torch.models.transformer import LM, input_specs
+from repro_torch.models.transformer import LM, input_specs, period_of
 from repro_torch.telemetry import roofline
 from repro_torch.train.optimizer import make_optimizer
 
 HBM_PER_CHIP_GIB = 80.0   # H100 80GB HBM3
+MEM_BLOCK = 512           # the JAX model's attention block, where the JAX dry run takes its memory
 ART = "artifacts/dryrun_torch"
 # microbatches a train cell runs: the second repeats the first's peak and
 # adds the accumulation; their costs are scaled to the cell's ``accum``
@@ -70,16 +79,46 @@ MICRO_RUN = 2
 
 
 def attn_block(shape) -> int:
-    """The blocked attention's block in the cell: the JAX model's 512, and
-    S / 16 past 8192 tokens (2048 at 32 768, the block the JAX dry run
-    probes its costs at, ``repro/launch/dryrun.py:163``). The pairs grow as
-    ``(S / block)^2``, each a few dozen ops dispatched on fake tensors: 2080
-    causal pairs a layer at 32 768 tokens and 512 rows, 136 at 2048. The
-    JAX dry run takes its memory from the model at 512 and its costs from
-    probes at 2048; here one run gives both, so a prefill_32k peak holds a
-    2048-row pair's scores (16 times a 512-row pair's). The artifact keeps
-    the JAX package's keys; the run's last line names the block."""
-    return max(512, shape.seq_len // 16)
+    """The blocked attention's block in the cell's counted run: the JAX
+    model's 512, and S / 16 past 8192 tokens (2048 at 32 768, the block the
+    JAX dry run probes its costs at, ``repro/launch/dryrun.py:163``). The
+    pairs grow as ``(S / block)^2``, each a few dozen ops dispatched on fake
+    tensors: 2080 causal pairs a layer at 32 768 tokens and 512 rows, 136
+    at 2048. The JAX dry run takes its memory from the model at 512
+    (:data:`MEM_BLOCK`), so where this block is larger the cell's peak
+    comes from :func:`probe_peak` instead; the run's last line names both
+    blocks."""
+    return max(MEM_BLOCK, shape.seq_len // 16)
+
+
+def needs_peak_probes(cfg, shape) -> bool:
+    """Whether the cell's counted run holds a larger attention pair than the
+    JAX model's at its peak (train and prefill at past 8192 tokens, where
+    the model has attention)."""
+    return (shape.mode in ("train", "prefill") and not cfg.attention_free
+            and attn_block(shape) != MEM_BLOCK)
+
+
+def probe_peak(cfg, shape, mesh, rules, block: int = None) -> int:
+    """The cell's peak of live storage a device at the attention block
+    ``block`` (:data:`MEM_BLOCK`, the JAX model's): the step run at one and
+    at two periods of the layer pattern (``period_of``), the peak taken
+    linear in the periods, ``p1 + (K - 1) * (p2 - p1)`` for K periods. This
+    is the JAX dry run's probe form (``repro/launch/dryrun.py:150-163``),
+    which the JAX package takes for its costs; its memory comes from the
+    full-depth compile at 512, which on fake tensors would take 2080
+    causal pairs a layer at 32 768 tokens. Run under ``FakeTensorMode``."""
+    block = block or MEM_BLOCK
+    period = period_of(cfg)
+    peaks = []
+    for k in (1, 2):
+        c = replace(cfg, num_layers=period * k)
+        fn, args, _, _ = build_cell(c, shape, mesh, rules,
+                                    model=LM(c, device="cpu", attn_block=block))
+        with roofline.count_memory(args) as mem:
+            fn(*args)
+        peaks.append(mem.peak)
+    return peaks[0] + (cfg.num_layers // period - 1) * (peaks[1] - peaks[0])
 
 
 def grad_accum(cfg, shape, mesh) -> int:
@@ -109,13 +148,13 @@ def _host_batch(cfg, shape):
 
 def _like(tree, shardings):
     """Each DTensor of ``tree`` redistributed to its sharding's placements
-    (JAX's ``out_shardings``)."""
+    (JAX's ``out_shardings``; ``sharding.redistribute``)."""
     if isinstance(tree, dict):
         return {k: _like(v, shardings[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_like(v, s) for v, s in zip(tree, shardings))
     pl = tuple(shardings.placements)
-    return tree if tuple(tree.placements) == pl else tree.redistribute(shardings.mesh, pl)
+    return redistribute(tree, pl)
 
 
 def _cache_shardings(model, shape, mesh, rules):
@@ -198,6 +237,13 @@ def roofline_spec(mesh, rules, shape, cfg):
                         ("act_batch", "act_seq", "act_vocab"), rules)
 
 
+def _with_peak(mem: dict, peak: int) -> dict:
+    """The memory dict ``mem`` with its peak (and so its temp) ``peak`` bytes."""
+    g = 2 ** 30
+    return roofline.mem_dict(round(mem["argument_gib"] * g), round(mem["output_gib"] * g),
+                             round(mem["alias_gib"] * g), peak)
+
+
 def _scale(c, f):
     return {"flops": c["flops"] * f, "transcendentals": c["transcendentals"] * f,
             "bytes": c["bytes"] * f,
@@ -258,6 +304,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.testing._internal.distributed.fake_pg import FakeStore
     world = 512 if mesh_kind == "multi" else 256
+    probed = needs_peak_probes(cfg, shape)
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
     try:
         mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
@@ -269,13 +316,20 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
             t0 = time.time()
             cost, mem = probe_costs(cfg, shape, mesh, rules, model=model)
             t_run = time.time() - t0
+            t0 = time.time()
+            at_costs = mem["peak_gib"]
+            if probed:
+                mem = _with_peak(mem, probe_peak(cfg, shape, mesh, rules))
+            t_probe = time.time() - t0
     finally:
         dist.destroy_process_group()
     rep = roofline.analyze_from_parts(mem=mem, cost=cost, arch=arch, shape=shape,
                                       mesh_name=mesh_kind, n_devices=world, cfg=cfg)
     fits = rep.mem["peak_gib"] <= HBM_PER_CHIP_GIB
+    blocks = (f"memory {MEM_BLOCK}, costs {attn_block(shape)}, there {at_costs:.2f}GiB"
+              if probed else f"{attn_block(shape)}")
     result.update(status="ok", fits=fits, lower_s=round(t_build, 2),
-                  compile_s=round(t_run, 2), probe_s=0.0,
+                  compile_s=round(t_run, 2), probe_s=round(t_probe, 2),
                   report=json.loads(rep.to_json()))
     if out_dir:                         # first: a closed stdout cannot lose a long run
         os.makedirs(out_dir, exist_ok=True)
@@ -285,7 +339,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
     print({k: v for k, v in cost.items() if k in ("flops", "transcendentals", "bytes")})
     print(mem)                          # the peak against the card's HBM
     print(f"[dryrun] {arch} x {shape_name} x {mesh_kind}: "
-          f"peak={rep.mem['peak_gib']:.2f}GiB (attention block {attn_block(shape)}) "
+          f"peak={rep.mem['peak_gib']:.2f}GiB (attention block {blocks}) "
           f"fits={fits} "
           f"compute={rep.t_compute*1e3:.2f}ms memory={rep.t_memory*1e3:.2f}ms "
           f"collective={rep.t_collective*1e3:.2f}ms bottleneck={rep.bottleneck} "

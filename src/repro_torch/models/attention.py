@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import is_meshed, local_ranges, shard_dims
+from repro_torch.distributed.sharding import is_meshed, local_ranges, redistribute, shard_dims
 from repro_torch.kernels import block_of, ops
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
 from repro_torch.models.layers import head_rms_norm, rope, shard_act
@@ -73,7 +73,7 @@ def attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal:
         mesh, qpl, kvpl, hdims = ops.attention_plan(q, k, head_dim=2, kv_dim=2)
         fn = ops.local_heads(lambda q, k, v: _AttendBlocked.apply(q, k, v, causal, window, block),
                              mesh, hdims, q.shape[2], k.shape[2], (1, 2))
-        return ops.run_local(fn, mesh, [q, k, v], [qpl, kvpl, kvpl], qpl)
+        return ops.run_local(fn, mesh, [q, k, v], [qpl, kvpl, kvpl], qpl, q.shape)
     return _AttendBlocked.apply(q, k, v, causal, window, block)
 
 
@@ -94,39 +94,65 @@ def attend_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return ops.decode_attention(q, k_cache, v_cache, positions, ring=ring)
 
 
-def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+def _split_heads(t: torch.Tensor, n: int, hd: int, *, split: bool = True) -> torch.Tensor:
     """``t`` [..., n * hd] as [..., n, hd]. A DTensor whose last dim is split
-    in a way that does not keep the n heads whole (6 heads over 4 ranks) is
+    in a way that does not keep the n heads whole (7 heads over 2 ranks) is
     gathered on that dim first: the kernels take whole heads, as the JAX
-    constraint's ``None`` on hd asks."""
+    constraint's ``None`` on hd asks. With ``split`` (q's heads) the heads
+    are then sliced back over the same mesh dims, each rank a contiguous
+    range of at most ``ceil(n / ranks)`` whole heads (DTensor's uneven
+    split: 4 and 3; deepseek's 56 over 16 ranks, 4 on each of 14), so that
+    each rank's attention takes its own heads, as XLA splits the work; the
+    slice moves no data. Without it (kv heads) they stay whole."""
     if is_meshed(t):
         dims = shard_dims(t, t.dim() - 1)
         if n % math.prod(t.device_mesh.size(i) for i in dims):
-            from torch.distributed.tensor import Replicate
-            t = t.redistribute(t.device_mesh, [Replicate() if i in dims else pl
-                                               for i, pl in enumerate(t.placements)])
+            from torch.distributed.tensor import Replicate, Shard
+            t = redistribute(t, [Replicate() if i in dims else p
+                                 for i, p in enumerate(t.placements)])
+            t = t.reshape(*t.shape[:-1], n, hd)
+            if not split:
+                return t
+            return redistribute(t, [Shard(t.dim() - 2) if i in dims else p
+                                    for i, p in enumerate(t.placements)])
     return t.reshape(*t.shape[:-1], n, hd)
+
+
+def _whole_heads(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [..., n, hd] with a head split that is uneven over its mesh
+    dims (:func:`_split_heads`) gathered, so that the heads flatten into
+    one dim as DTensor lays out a split."""
+    if is_meshed(t):
+        dims = shard_dims(t, t.dim() - 2)
+        if t.shape[-2] % math.prod(t.device_mesh.size(i) for i in dims):
+            from torch.distributed.tensor import Replicate
+            return redistribute(t, [Replicate() if i in dims else p
+                                    for i, p in enumerate(t.placements)])
+    return t
 
 
 class _MergeHeads(torch.autograd.Function):
     """``[..., n, hd]`` as ``[..., n * hd]`` split over ``dims`` (the mesh
     dims that split the out-projection's rows), as XLA splits the product
     there: the weight's gradient is then split too, where DTensor would
-    otherwise multiply the whole heads on every rank of those dims. The
-    gradient comes back through :func:`_split_heads`, gathered first where
-    its split does not keep the heads whole (7 heads over 2 ranks)."""
+    otherwise multiply the whole heads on every rank of those dims. Heads
+    split unevenly are gathered first (:func:`_whole_heads`). The gradient
+    comes back through :func:`_split_heads`, gathered first where its
+    split does not keep the heads whole (7 heads over 2 ranks) and sliced
+    to the heads' uneven split."""
 
     @staticmethod
     def forward(ctx, t, dims):
         from torch.distributed.tensor import Shard
         ctx.heads = t.shape[-2:]
+        t = _whole_heads(t)
         flat = t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
         mesh, d = flat.device_mesh, flat.dim() - 1
         pl = [Shard(d) if i in dims and p.is_replicate() else p
               for i, p in enumerate(flat.placements)]
         if flat.shape[d] % math.prod(mesh.size(i) for i in dims) or pl == list(flat.placements):
             return flat
-        return flat.redistribute(mesh, pl)
+        return redistribute(flat, pl)
 
     @staticmethod
     def backward(ctx, g):
@@ -137,6 +163,7 @@ def _merge_heads(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``t`` [..., n, hd] as [..., n * hd], the input of ``@ w``."""
     if is_meshed(t, w) and torch.is_grad_enabled() and t.requires_grad:
         return _MergeHeads.apply(t, shard_dims(w, 0))
+    t = _whole_heads(t)
     return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
 
 
@@ -155,8 +182,8 @@ def attn_forward(x: torch.Tensor, p: dict, cfg, layer_local: bool,
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(x @ p["wq"], H, hd)
-    k = _split_heads(x @ p["wk"], KV, hd)
-    v = _split_heads(x @ p["wv"], KV, hd)
+    k = _split_heads(x @ p["wk"], KV, hd, split=False)
+    v = _split_heads(x @ p["wv"], KV, hd, split=False)
     if cfg.qk_norm:
         q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -194,8 +221,8 @@ def attn_decode(x: torch.Tensor, p: dict, cfg, layer_local: bool, cache: dict,
     B, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(x @ p["wq"], H, hd)
-    k = _split_heads(x @ p["wk"], KV, hd)
-    v = _split_heads(x @ p["wv"], KV, hd)
+    k = _split_heads(x @ p["wk"], KV, hd, split=False)
+    v = _split_heads(x @ p["wv"], KV, hd, split=False)
     if cfg.qk_norm:
         q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -210,7 +237,7 @@ def attn_decode(x: torch.Tensor, p: dict, cfg, layer_local: bool, cache: dict,
     k_cache = shard_act(cache["k"], ("act_batch", "act_kv_seq", "act_kv_heads", None))
     v_cache = shard_act(cache["v"], ("act_batch", "act_kv_seq", "act_kv_heads", None))
     out = attend_decode(q, k_cache, v_cache, positions, ring=ring)
-    y = out.reshape(B, H * hd) @ p["wo"]
+    y = _merge_heads(out, p["wo"]) @ p["wo"]
     return y, cache
 
 
@@ -255,5 +282,5 @@ def _local(t: torch.Tensor, mesh, placements, ranges) -> torch.Tensor:
     tensor after a redistribution, or the block ``ranges`` of a tensor that
     every rank holds whole."""
     if is_meshed(t):
-        return t.redistribute(mesh, placements).to_local()
+        return redistribute(t, placements).to_local()
     return t[tuple(slice(a, z) for a, z in ranges)]

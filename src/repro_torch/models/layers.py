@@ -142,9 +142,8 @@ def shard_act(x: torch.Tensor, names: Tuple[Optional[str], ...]) -> torch.Tensor
 
 
 def _constrain(x, spec):
-    from repro_torch.distributed.sharding import spec_placements
-    pl = spec_placements(x.device_mesh, spec, current=x.placements)
-    return x if tuple(pl) == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+    from repro_torch.distributed.sharding import redistribute, spec_placements
+    return redistribute(x, spec_placements(x.device_mesh, spec, current=x.placements))
 
 
 class _Constrain(torch.autograd.Function):

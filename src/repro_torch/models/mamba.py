@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import shard_act
+from repro_torch.models.layers import reduce_partial, shard_act
 
 
 def softplus(v: torch.Tensor) -> torch.Tensor:
@@ -38,18 +38,24 @@ def softplus(v: torch.Tensor) -> torch.Tensor:
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  carry: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv. x: [B, S, DI]; w: [K, DI]; carry: [B, K-1, DI].
-    Returns (out [B, S, DI], the new carry: the last K-1 inputs)."""
+    Returns (out [B, S, DI], the new carry: the last K-1 inputs, a tensor
+    of their own, as the JAX slice is: a view would keep the whole padded
+    input alive in the cache)."""
     K = w.shape[0]
     S = x.shape[1]
     if carry is None:
         carry = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
     xp = torch.cat([carry, x], dim=1)                    # [B, S+K-1, DI]
     out = sum(xp[:, i:i + S] * w[i] for i in range(K))
-    return out, xp[:, -(K - 1):]
+    return out, xp[:, -(K - 1):].clone()
 
 
 def _dt_b_c(xi: torch.Tensor, p: dict, m):
-    bcdt = xi @ p["x_proj"]                             # [..., dt_rank + 2N]
+    # on a mesh the product is a partial sum over d_inner's split: reduced
+    # here, as XLA reduces it, so that ``dt @ dt_proj`` splits d_inner as
+    # the weight does (DTensor would otherwise make the whole d_inner on
+    # every rank and then gather the batch to split it again)
+    bcdt = reduce_partial(xi @ p["x_proj"])             # [..., dt_rank + 2N]
     dt, Bc, Cc = torch.split(bcdt, [m.dt_rank, m.d_state, m.d_state], dim=-1)
     dt = softplus(dt @ p["dt_proj"] + p["dt_bias"]).float()
     return dt, Bc, Cc

@@ -420,6 +420,8 @@ class LM(nn.Module):
                                use_reentrant=False)
             else:
                 x, caches = self._period_seq(x, pk, positions)
+                if want_cache:
+                    caches = self._constrain_caches(caches, B, S)
                 per_period.append(caches)
         x = rms_norm(x, P["final_norm"], self.cfg.norm_eps)
         if not want_cache:
@@ -427,6 +429,17 @@ class LM(nn.Module):
         caches = [{name: torch.stack([pc[s][name] for pc in per_period])
                    for name in per_period[0][s]} for s in range(self.period)]
         return x, caches
+
+    def _constrain_caches(self, caches, B: int, S: int):
+        """One period's caches constrained to the decode cache's logical axes
+        (``cache_specs``, the layer dim left out), as they come out of the
+        period: the JAX scan writes each period's cache into the stacked
+        output under its out-sharding, so no rank holds a layer's whole
+        cache (deepseek's kv heads do not split over ``model``: their slots
+        do) nor two copies of every layer's (the stack's)."""
+        _, axes = self.cache_specs(B, S)
+        return [{n: shard_act(t, axes["slots"][s][n][1:]) for n, t in c.items()}
+                for s, c in enumerate(caches)]
 
     def loss_fn(self, params: Dict[str, torch.Tensor], batch):
         """Mean CE (+ MoE aux). batch: tokens (+ patch_embeds) or frames,

@@ -28,6 +28,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.sharding import is_meshed, redistribute
+
 
 def _map(fn, *trees):
     """``fn`` over the leaves of same-shaped trees of dicts and lists; the
@@ -90,6 +92,33 @@ class AdamW:
 
 
 
+def _factored(r, denom, c, g):
+    """Adafactor's second moment of a matrix, ``(r / denom)[..., None] *
+    c[..., None, :]``. On DTensors it is made on each rank's shard, laid
+    out as the gradient ``g``: r (and denom) take g's splits of its leading
+    dims, c those of its leading and last dims. DTensor would pick a layout
+    of its own for the broadcast product: the whole product on every rank
+    (the reduced grok on ``(2, 4)``), or its layer dim split where g splits
+    its last (grok1_314b on ``(16, 16)``: a 24 GiB float32 product, and an
+    update that must then move between dims)."""
+    if not is_meshed(g):
+        return (r[..., None] / denom[..., None]) * c[..., None, :]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    nd, mesh = g.dim(), g.device_mesh
+
+    def keep(dims, shift=None):
+        return [Shard(shift.get(p.dim, p.dim) if shift else p.dim)
+                if isinstance(p, Shard) and p.dim in dims else Replicate()
+                for p in g.placements]
+    lead = range(nd - 2)
+    rl = redistribute(r, keep(range(nd - 1))).to_local()
+    dl = redistribute(denom, keep(lead)).to_local()
+    cl = redistribute(c, keep([*lead, nd - 1], {nd - 1: nd - 2})).to_local()
+    v = (rl[..., None] / dl[..., None]) * cl[..., None, :]
+    return DTensor.from_local(v, mesh, g.placements, run_check=False, shape=g.shape,
+                              stride=g.stride())
+
+
 @dataclass(frozen=True)
 class Adafactor:
     """Factored second-moment (Shazeer & Stern). Matrices store row/col stats
@@ -131,7 +160,7 @@ class Adafactor:
                 r = beta * s["r"] + (1 - beta) * g2.mean(-1)
                 c = beta * s["c"] + (1 - beta) * g2.mean(-2)
                 denom = torch.clamp_min(r.mean(-1, keepdim=True), self.eps)
-                v = (r[..., None] / denom[..., None]) * c[..., None, :]
+                v = _factored(r, denom, c, g)
                 ns = {"r": r, "c": c}
             else:
                 v = beta * s["v"] + (1 - beta) * g2

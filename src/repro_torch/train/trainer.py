@@ -28,7 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.distributed.sharding import is_meshed
+from repro_torch.distributed.sharding import is_meshed, redistribute
 from repro_torch.models.transformer import LM, torch_dtype
 
 
@@ -50,11 +50,13 @@ def _implicit_replication():
 
 def _like(new, old):
     """``new`` redistributed to ``old``'s placements where it is a DTensor
-    and they differ: an update keeps every tensor where the shardings put it."""
+    and they differ (a split moved between dims by all-to-all,
+    ``sharding.redistribute``): an update keeps every tensor where the
+    shardings put it."""
     if isinstance(new, dict):
         return {k: _like(v, old[k]) for k, v in new.items()}
     if is_meshed(new) and tuple(new.placements) != tuple(old.placements):
-        return new.redistribute(old.device_mesh, old.placements)
+        return redistribute(new, old.placements)
     return new
 
 

@@ -16,8 +16,13 @@ files, ``pods.json``, ``serve.json``).
   each rank's offset and local shape of every parameter; then the same runs
   on one process each (plain tensors), the references, one run a rank
   (``single_*`` files, written by their rank). Also every
-  dispatch function of ``kernels.ops`` and ``shard_act`` on DTensors, and
-  the refusals of a model axis of 3.
+  dispatch function of ``kernels.ops`` and ``shard_act`` on DTensors, the
+  refusals of a model axis of 3, ``sharding.redistribute``'s moves
+  (:func:`move_checks`) and its backward where nothing moves
+  (:func:`backward_checks`), the logsumexp routes with kv heads that do not
+  split with q's (:func:`lse_checks`), reduced deepseek's 7 heads over 2
+  ranks (:func:`heads_checks`) and a grok step under Adafactor
+  (:func:`grok_step_checks`).
 * ``ckpt``: saves a tree on a ``(4, 2)`` mesh and restores it on ``(2, 4)``
   under other placements; restores the checkpoint the JAX package writes
   into <dir>/jax from 8 devices the same way (waiting for it); runs the
@@ -184,7 +189,9 @@ def ops_checks(mesh) -> dict:
                                                 ops.flash_attention(q, k, v, window=6))
         (o, lse), (do, dlse) = (ops.flash_attention_lse(q, k, v, block=8),
                                 ops.flash_attention_lse(dq, dk, dv, block=8))
-        errs[f"flash_attention_lse/{label}"] = max(_err(do, o), _err(dlse, lse))
+        # on DTensors the lse is [B, S, H], the plain call's [B, S, KV, G] flattened
+        errs[f"flash_attention_lse/{label}"] = max(
+            _err(do, o), _err(dlse.full_tensor().reshape(lse.shape), lse))
         dg = place(g, NamedSharding(mesh, qs))
         want = ops.flash_attention_bwd(q, k, v, o, lse, g, block=8)
         got = ops.flash_attention_bwd(dq, dk, dv, do, dlse, dg, block=8)
@@ -332,6 +339,193 @@ def vocab_checks(mesh) -> dict:
     return res
 
 
+class _Largest(R._Counter):
+    """The most elements of a local tensor that a rank's ops make, and the
+    all-to-alls and all-gathers among them."""
+
+    def __init__(self):
+        super().__init__()
+        self.numel, self.all_to_all, self.all_gather = 0, 0, 0
+
+    def op(self, func, args, kwargs, out):
+        self.numel = max([self.numel] + [t.numel() for t in R._tensors(out)])
+        self.all_to_all += func._opname == "all_to_all_single"
+        self.all_gather += func._opname.startswith("all_gather")
+
+
+MOVE_SHAPE = (8, 10, 9)     # dims 1 and 2 split unevenly 4 ways (3, 3, 3, 1 and 3, 3, 3, 0)
+
+
+def move_checks(mesh) -> dict:
+    """``sharding.redistribute`` against ``DTensor.redistribute`` for every
+    move of a split between two dims of :data:`MOVE_SHAPE` on each mesh dim
+    of ``mesh``, the other mesh dim replicated or splitting any dim, and
+    the gradient of each move: whether the local results are bit-equal,
+    the largest local tensor the move makes over the larger of its input's
+    and its result's shards, the all-to-alls and all-gathers it issues, and
+    whether the other mesh dim nests a split inside the moved dims (it then
+    steps aside to the third dim and back: three all-to-alls)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed.sharding import redistribute
+    x = torch.randn(MOVE_SHAPE, generator=torch.Generator().manual_seed(3))
+    w = torch.randn(MOVE_SHAPE, generator=torch.Generator().manual_seed(4))
+    res = {}
+    for m in range(mesh.ndim):
+        for a in range(3):
+            for b in range(3):
+                if a == b:
+                    continue
+                for other in [Replicate()] + [Shard(k) for k in range(3)]:
+                    src, dst = [other, other], [other, other]
+                    src[m], dst[m] = Shard(a), Shard(b)
+                    d = distribute_tensor(x, mesh, src).requires_grad_()
+                    ref = distribute_tensor(x, mesh, src).requires_grad_()
+                    with _Largest() as big:
+                        got = redistribute(d, dst)
+                    want = ref.redistribute(mesh, dst)
+                    (got.to_local() * w[:got.to_local().shape[0]].sum()).sum().backward()
+                    (want.to_local() * w[:want.to_local().shape[0]].sum()).sum().backward()
+                    shards = max(d.to_local().numel(), got.to_local().numel(), 1)
+                    res[f"{m}:{a}->{b}/{other}"] = {
+                        "equal": bool(torch.equal(got.to_local(), want.to_local())
+                                      and tuple(got.placements) == tuple(dst)
+                                      and torch.equal(d.grad.to_local(), ref.grad.to_local())),
+                        "largest": big.numel / shards, "all_to_all": big.all_to_all,
+                        "all_gather": big.all_gather,
+                        "nested": m == 0 and isinstance(other, Shard) and other.dim in (a, b)}
+    return res
+
+
+def backward_checks(mesh) -> dict:
+    """``sharding.redistribute`` where no split moves between dims and the
+    gradient arrives ``Partial`` on a mesh dim that the result replicates,
+    against ``DTensor.redistribute``: whether the input's gradients are
+    bit-equal (values and placements), and the collectives each issues,
+    forward and backward. DTensor reduces such a gradient once, straight
+    into the input's layout (a reduce-scatter where the input is split)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed.sharding import redistribute
+    x = torch.randn(MOVE_SHAPE, generator=torch.Generator().manual_seed(6))
+    res = {}
+    for name, src, dst, gpl in (
+            ("split on model", [Shard(0), Shard(1)], [Shard(0), Replicate()],
+             [Shard(0), Partial()]),
+            ("split on data", [Shard(2), Replicate()], [Replicate(), Replicate()],
+             [Partial(), Replicate()])):
+        got = {}
+        for label in ("port", "dtensor"):
+            d = distribute_tensor(x, mesh, src).requires_grad_()
+            with R.count_collectives() as coll:
+                y = redistribute(d, dst) if label == "port" else d.redistribute(mesh, dst)
+                y.to_local(grad_placements=gpl).sum().backward()
+            got[label] = (d.grad, coll.stats.ops)
+        (gp, port), (gd, ref) = got["port"], got["dtensor"]
+        res[name] = {"equal": bool(torch.equal(gp.to_local(), gd.to_local())
+                                   and tuple(gp.placements) == tuple(gd.placements)),
+                     "port": port, "dtensor": ref}
+    return res
+
+
+def lse_checks(mesh) -> dict:
+    """``flash_attention_lse`` and ``flash_attention_bwd`` on DTensors of
+    ``mesh`` (``(2, 4)``) whose kv heads do not split with q's (H 8, KV 2,
+    heads over the 4 ``model`` ranks, batch over ``data``) against the
+    plain calls: the max abs error of out, lse, dq, dk and dv, the
+    collectives the two calls issue, and the q heads a rank's kernel takes."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(5)
+    q, dq = _placed(gen, (4, 16, 8, 16), mesh, ("data", None, "model"))
+    k, dk = _placed(gen, (4, 16, 2, 16), mesh, ("data",))
+    v, dv = _placed(gen, (4, 16, 2, 16), mesh, ("data",))
+    g = torch.randn(4, 16, 8, 16, generator=gen)
+    o, lse = ops.flash_attention_lse(q, k, v, window=6, block=8)
+    want = ops.flash_attention_bwd(q, k, v, o, lse, g, window=6, block=8)
+    dg = place(g, NamedSharding(mesh, ("data", None, "model")))
+    with R.count_collectives() as coll:
+        do, dlse = ops.flash_attention_lse(dq, dk, dv, window=6, block=8)
+        got = ops.flash_attention_bwd(dq, dk, dv, do, dlse, dg, window=6, block=8)
+    return {"out": _err(do, o), "lse": _err(dlse.full_tensor().reshape(lse.shape), lse),
+            "grads": [_err(a, b) for a, b in zip(got, want)],
+            "lse_shape": list(dlse.shape), "collectives": coll.stats.ops,
+            "local_heads": dq.to_local().shape[2], "out_local_heads": do.to_local().shape[2]}
+
+
+def _deepseek():
+    """Reduced deepseek_coder_33b in float32: 7 q heads, one kv head."""
+    return replace(reduced(get_config("deepseek_coder_33b")), dtype="float32")
+
+
+def heads_checks(mesh) -> dict:
+    """Reduced deepseek_coder_33b (7 heads on a ``model`` axis of 2) on
+    ``mesh`` under ``TRAIN_RULES``: the loss and every gradient against the
+    single-process run (max abs error over the reference's largest
+    magnitude), and the q heads each rank's attention kernel took in each
+    call (its plain version's calls, forward and backward), by rank."""
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import ops
+    cfg = _deepseek()
+    lm = LM(cfg, device="cpu", seed=0, attn_block=16)
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8,
+                                    seed=0))
+    batch = {k: torch.as_tensor(v) for k, v in stream.batch(0).items()}
+    params = {n: p.detach().requires_grad_() for n, p in lm.params().items()}
+    loss, _ = lm.loss_fn(params, batch)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    axes = launcher.flat_axes(lm.param_axes())
+    sh = tree_shardings(mesh, params, axes, TRAIN_RULES)
+    dparams = {n: place(p.detach(), sh[n]).requires_grad_() for n, p in params.items()}
+    dbatch = {k: place(v, NamedSharding(mesh, ("data",))) for k, v in batch.items()}
+    heads = []
+    fwd, bwd = FB.attend_fwd_plain, FB.flash_attention_bwd_plain
+
+    def seen(fn):
+        def call(q, *a, **kw):
+            heads.append(q.shape[2])
+            return fn(q, *a, **kw)
+        return call
+    from torch.distributed.tensor.experimental import implicit_replication
+    with sharding_context(make_resolver(mesh, TRAIN_RULES)), implicit_replication(), \
+            mock.patch.object(ops._flash_bwd, "attend_fwd_plain", seen(fwd)), \
+            mock.patch.object(ops._flash_bwd, "flash_attention_bwd_plain", seen(bwd)):
+        dloss, _ = lm.loss_fn(dparams, dbatch)
+        dgrads = dict(zip(dparams, torch.autograd.grad(dloss, list(dparams.values()))))
+    rel = lambda got, want: _err(got, want) / max(want.abs().max().item(), 1e-30)  # noqa: E731
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, heads)
+    return {"loss": rel(dloss, loss), "grads": {n: rel(dgrads[n], g) for n, g in grads.items()},
+            "heads": every, "num_heads": cfg.num_heads}
+
+
+def grok_step_checks(out: str, mesh) -> dict:
+    """One train step (accumulation 2) of reduced grok1_314b with 4 layers
+    and 6 experts, in float32, under Adafactor (grok's optimizer) on
+    ``mesh`` (``(2, 4)``: the stacked layer dim splits over ``model`` as
+    grok's 64 over 16 does) against the same step on one process: the max
+    abs error of the loss and the new parameters, and the local tensors a
+    rank makes of the whole expert stack's shape (none)."""
+    with open(os.path.join(out, "grok1_314b.json")) as f:
+        cfg = replace(ModelConfig.from_json(f.read()), num_layers=4)
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8,
+                                    seed=0))
+    res = {}
+    for m in (None, mesh):
+        lm = LM(cfg, device="cpu", seed=0, attn_block=16)
+        tr = launcher.setup_training(lm, Adafactor(lr=1e-3), m, rows=4, seq=32, accum=2)
+        stack = tuple(lm.params()["slots.0.moe_wi"].shape)
+        whole = lambda shape: tuple(shape) in (stack, stack[:2] + stack[:1:-1])  # noqa: E731
+        with tr.context, _Holding(whole) as held:
+            p, _, metrics = tr.step(tr.params, tr.opt_state, stream.batch(0))
+        res["mesh" if m else "single"] = ({n: _full(t) for n, t in p.items()},
+                                          float(metrics["loss"]), held.seen)
+    (want, loss, _), (got, dloss, seen) = res["single"], res["mesh"]
+    return {"loss": abs(dloss - loss), "params": max(_err(got[n], w) for n, w in want.items()),
+            "whole": seen, "stack": list(stack)}
+
+
 def _took(what: str, t0: float) -> None:
     if dist.get_rank() == 0:
         print(f"[worker] {what}: {time.monotonic() - t0:.1f} s", flush=True)
@@ -345,6 +539,11 @@ def train_job(out: str, meshes: dict) -> None:
     res = {"coord": mesh.get_coordinate(), "ops": ops_checks(mesh),
            "shard_act": shard_act_checks(mesh), "vocab": vocab_checks(mesh)}
     _took("kernels.ops, shard_act and the vocab-parallel log-prob on DTensors", t0)
+    t0 = time.monotonic()
+    res.update(moves=move_checks(mesh), backward=backward_checks(mesh),
+               lse=lse_checks(meshes[4]), heads=heads_checks(mesh),
+               grok_step=grok_step_checks(out, meshes[4]))
+    _took("the all-to-all moves, the lse routes, the uneven heads, grok's step", t0)
     for name, (arch, steps, opt_name, axis) in RUNS.items():
         t0 = time.monotonic()
         rec = run_steps(out, name, meshes[axis])

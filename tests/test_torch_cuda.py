@@ -1190,7 +1190,7 @@ def test_grouped_matmul_bwd_wrappers_reject_what_the_kernels_do_not_take(card):
 def test_a_one_rank_nccl_mesh_step_equals_the_plain_step(card):
     """Reduced qwen3_32b in f32 on a one-rank NCCL group and a (1, 1) mesh:
     the mesh path (DTensor parameters and state, shard_act, B1 and B1b
-    through local_map) gives the plain path's losses, gradient norms and
+    through ops.run_local) gives the plain path's losses, gradient norms and
     parameters after 3 steps."""
     from dataclasses import replace
 
@@ -1312,6 +1312,51 @@ def test_slot_split_decode_on_a_cuda_mesh_launches_the_partial_route(card):
         assert dec.decode_attention.launches == w
         want = dec.decode_attention(q, kc, vc, pos)
         torch.testing.assert_close(out.full_tensor().float(), want.float(), rtol=2e-2, atol=2e-2)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_logsumexp_routes_on_a_cuda_mesh_are_bit_equal_to_the_plain_call(card, dtype):
+    """``ops.flash_attention_lse`` and ``ops.flash_attention_bwd`` on CUDA
+    DTensors of a one-rank ``(1, 1)`` mesh, q's heads on ``model`` and kv's
+    whole (H 8, KV 2): B1's out and its lse, carried as ``[B, S, H]``, and
+    B1b's dq, dk, dv, the lse taken back to ``[B, S, KV, G]`` on the rank,
+    bit-equal to the calls on plain tensors, each kernel launched once a
+    call."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_process_group, make_local_mesh
+    started = not dist.is_initialized()
+    if started:
+        init_process_group("cuda")
+    try:
+        mesh = make_local_mesh(model_axis=1, device="cuda")
+        gen = torch.Generator(device=card).manual_seed(11)
+        q = _randn(gen, (2, 128, 8, 64), dtype, card)
+        k = _randn(gen, (2, 128, 2, 64), dtype, card)
+        v = _randn(gen, (2, 128, 2, 64), dtype, card)
+        g = _randn(gen, (2, 128, 8, 64), dtype, card)
+        qpl, kvpl = [Replicate(), Shard(2)], [Replicate(), Replicate()]
+        dq, dg = (DTensor.from_local(t, mesh, qpl, run_check=False) for t in (q, g))
+        dk, dv = (DTensor.from_local(t, mesh, kvpl, run_check=False) for t in (k, v))
+        o, lse = ops.flash_attention_lse(q, k, v, window=48)
+        want = ops.flash_attention_bwd(q, k, v, o, lse, g, window=48)
+        n, nb = fa.flash_attention.launches, fb.flash_attention_bwd.launches
+        do, dlse = ops.flash_attention_lse(dq, dk, dv, window=48)
+        got = ops.flash_attention_bwd(dq, dk, dv, do, dlse, dg, window=48)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == n + 1 and fb.flash_attention_bwd.launches == nb + 1
+        assert tuple(dlse.shape) == (2, 128, 8) and tuple(dlse.placements) == tuple(qpl)
+        assert torch.equal(do.to_local(), o)
+        assert torch.equal(dlse.to_local().reshape(lse.shape), lse)
+        for a, b in zip(got, want):
+            assert torch.equal(a.to_local(), b)
     finally:
         if started:
             dist.destroy_process_group()

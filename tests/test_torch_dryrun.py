@@ -12,16 +12,23 @@ JAX package's.
 * The per-device FLOPs of reduced deepseek_coder_33b train_4k and qwen3_32b
   decode (8 x 64 tokens) on that mesh against JAX's
   ``cost_analysis()["flops"]`` of the same cells on 8 XLA CPU devices
-  (unrolled, ``attn_block`` 16), within 10% (the JAX package's own probe
-  tolerance is 5% of depth; this holds two programs). Both count the
-  matmuls by their products and one FLOP an element of elementwise work,
-  transcendentals apart, and the port counts the plain path it runs,
-  DTensor's local ops included. Measured, port over JAX: train 1.091 (its
-  7 heads split neither way on the model axis, so both model ranks run
-  every head's attention, where XLA splits the head dim) and decode 0.984.
-  They were 1.25 and 1.54 before ``shard_act`` constrained the gradient,
-  a ``Partial`` residual was reduced before the norm, the cache's slots
-  were attended where they lie and transcendentals left the count.
+  (unrolled, ``attn_block`` 16), within 5% (the JAX package's own probe
+  tolerance of depth). Both count the matmuls by their products and one
+  FLOP an element of elementwise work, transcendentals apart, and the port
+  counts the plain path it runs, DTensor's local ops included. They were
+  1.25 and 1.54 before ``shard_act`` constrained the gradient, a
+  ``Partial`` residual was reduced before the norm, the cache's slots were
+  attended where they lie and transcendentals left the count; train was
+  1.091 while its 7 heads ran whole on both model ranks (they split 4 and
+  3 since). The bytes of the same cells are read against JAX's, with no
+  band.
+* The dry run's peak of a cell past 8192 tokens comes from two shallow
+  probes at the JAX model's 512 rows (``dryrun.probe_peak``): at the
+  counted run's own block the probes give the full depth's peak within 1%;
+  a placed shard holds its own storage, not a view of the whole tensor.
+* Reduced falcon's prefill makes no tensor of a rank's tokens with d_inner
+  whole; reduced qwen3's prefill gives each layer's cache split as the
+  cache's axes split it.
 * One production cell (phi3_vision decode_32k on 256 fake ranks) runs end
   to end through the CLI and writes an ``ok`` artifact with the JAX
   package's keys; ``sweep`` writes the skips itself, resumes, and records
@@ -46,7 +53,10 @@ from repro_torch.configs import assigned_archs, get_config  # noqa: E402
 from repro_torch.telemetry.roofline import RooflineReport  # noqa: E402
 
 # port FLOPs over JAX's (see the module's docstring)
-BANDS = {"deepseek_coder_33b/train": (0.90, 1.10), "qwen3_32b/decode": (0.90, 1.10)}
+BANDS = {"deepseek_coder_33b/train": (0.95, 1.05), "qwen3_32b/decode": (0.95, 1.05)}
+# reduced cells whose peak the two shallow probes extrapolate: (arch, shape, layers)
+PEAK_CELLS = (("qwen3_32b", "prefill_32k", 6), ("gemma3_12b", "prefill_32k", 18),
+              ("deepseek_coder_33b", "train_4k", 4))
 
 PORT = """
     import json
@@ -61,7 +71,7 @@ PORT = """
     from repro_torch.models import LM
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
     mesh = make_local_mesh(model_axis=2, device="cpu")
-    out = {"linear": {}, "flops": {}, "cells": {}}
+    out = {"linear": {}, "flops": {}, "bytes": {}, "cells": {}, "peaks": {}}
 
     def count(cfg, shape):
         with FakeTensorMode():
@@ -79,6 +89,55 @@ PORT = """
                                               seq_len=64))):
         cost, mem = count(replace(reduced(get_config(arch)), dtype="float32"), shape)
         out["flops"][f"{arch}/{shape.mode}"] = cost["flops"]
+        out["bytes"][f"{arch}/{shape.mode}"] = cost["bytes"]
+    # the peak: the full depth's counted run against the two shallow probes
+    for arch, name, layers in PEAK_CELLS:
+        cfg = replace(reduced(get_config(arch)), num_layers=layers)
+        shape = replace(SHAPES[name], global_batch=8, seq_len=64)
+        rules = rules_for_cfg(shape.mode, cfg)
+        _, mem = count(cfg, shape)
+        with FakeTensorMode():
+            probed = dryrun.probe_peak(cfg, shape, mesh, rules, block=16)
+        out["peaks"][f"{arch}/{name}"] = [mem["peak_gib"] * 2 ** 30, probed]
+    # a shard that is a contiguous slice of the whole tensor (a one-period
+    # probe's stacked expert weights, one expert a rank and the embed dim split)
+    import torch
+    from repro_torch.distributed.sharding import NamedSharding, place
+    loc = place(torch.zeros(1, 4, 8, 6), NamedSharding(mesh, (None, "data", "model"))).to_local()
+    out["place"] = [list(loc.shape), loc.untyped_storage().nbytes(), loc.numel() * 4]
+    # reduced falcon's prefill: the local tensors of the rank's 2 x 32 tokens
+    # that hold d_inner whole
+    from repro_torch.telemetry import roofline as R
+    cfg = replace(reduced(get_config("falcon_mamba_7b")), dtype="float32")
+    DI = cfg.mamba.d_inner
+
+    class Held(R._Counter):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def op(self, func, args, kwargs, res):
+            self.seen += [[str(func), list(t.shape)] for t in R._tensors(res)
+                          if t.dim() >= 2 and t.shape[-1] == DI and t.numel() == 2 * 32 * DI]
+    with FakeTensorMode():
+        shape = replace(SHAPES["prefill_32k"], global_batch=8, seq_len=32)
+        fn, args, _, _ = dryrun.build_cell(cfg, shape, mesh, rules_for_cfg("prefill", cfg),
+                                           model=LM(cfg, device="cpu", attn_block=16))
+        with Held() as held:
+            fn(*args)
+    out["whole_d_inner"] = held.seen
+    # reduced qwen3's prefill: the stacked cache as LM.prefill gives it
+    from repro_torch.distributed.sharding import make_resolver
+    from repro_torch.models.layers import sharding_context
+    cfg = replace(reduced(get_config("qwen3_32b")), num_layers=3, dtype="float32")
+    rules = rules_for_cfg("prefill", cfg)
+    with FakeTensorMode():
+        lm = LM(cfg, device="cpu", attn_block=16)
+        _, (params, batch), _, _ = dryrun.build_cell(cfg, shape, mesh, rules, model=lm)
+        with sharding_context(make_resolver(mesh, rules)):
+            _, cache = lm.prefill(batch, params=params)
+    k = cache["slots"][0]["k"]
+    out["prefill_cache"] = [list(k.shape), list(k.to_local().shape), repr(tuple(k.placements))]
     # build_cell's modes: what each donates and gives back
     for arch, name in (("hubert_xlarge", "prefill_32k"), ("qwen3_32b", "prefill_32k"),
                        ("qwen3_32b", "decode_32k"), ("falcon_mamba_7b", "long_500k"),
@@ -119,7 +178,9 @@ JAX = """
                                               model=LM(cfg, unroll=True, attn_block=16))
         with mesh, sharding_context(make_resolver(mesh, rules)):
             comp = jax.jit(fn, donate_argnums=donate, out_shardings=out_sh).lower(*args).compile()
-        out[f"{arch}/{shape.mode}"] = comp.cost_analysis()["flops"]
+        ca = comp.cost_analysis()
+        out[f"{arch}/{shape.mode}"] = ca["flops"]
+        out[f"{arch}/{shape.mode}/bytes"] = ca["bytes accessed"]
     with open(OUT, "w") as f:
         json.dump(out, f)
 """
@@ -130,7 +191,8 @@ def counted(tmp_path_factory):
     """The port's counts on a fake 8-rank group and JAX's cost analysis on 8
     devices, in two subprocesses started together."""
     d = tmp_path_factory.mktemp("dryrun")
-    port = python_sub(f"OUT = {str(d / 'port.json')!r}\n" + textwrap.dedent(PORT),
+    port = python_sub(f"OUT = {str(d / 'port.json')!r}\nPEAK_CELLS = {PEAK_CELLS!r}\n"
+                      + textwrap.dedent(PORT),
                       str(d / "port.log"))
     ref = python_sub(f"OUT = {str(d / 'jax.json')!r}\n" + textwrap.dedent(JAX),
                      str(d / "jax.log"), devices=8)
@@ -188,8 +250,69 @@ def test_the_count_is_linear_in_depth(counted):
 def test_per_device_flops_against_jax_cost_analysis(counted, cell):
     port, ref = counted
     ratio = port["flops"][cell] / ref[cell]
+    print(f"[flops] {cell}: port {port['flops'][cell]:.0f} / JAX {ref[cell]:.0f} = {ratio:.4f}")
     lo, hi = BANDS[cell]
     assert lo <= ratio <= hi, (port["flops"][cell], ref[cell], ratio)
+
+
+@pytest.mark.parametrize("cell", list(BANDS))
+def test_per_device_bytes_against_jax_cost_analysis_are_read(counted, cell):
+    """The port's per-device bytes over JAX's ``cost_analysis()["bytes
+    accessed"]`` for the same cells: a reading with no band (XLA fuses, the
+    port counts its unfused ops), printed for ``-s``."""
+    port, ref = counted
+    ratio = port["bytes"][cell] / ref[f"{cell}/bytes"]
+    print(f"[bytes] {cell}: port {port['bytes'][cell]:.0f} / JAX "
+          f"{ref[f'{cell}/bytes']:.0f} = {ratio:.3f}")
+    assert ratio > 0
+
+
+@pytest.mark.parametrize("cell", [f"{a}/{s}" for a, s, _ in PEAK_CELLS])
+def test_the_peak_probes_extrapolate_to_the_full_depth(counted, cell):
+    """``dryrun.probe_peak``'s two shallow probes (one and two periods of
+    the layer pattern) extrapolated linearly give, at the counted run's own
+    block, the full-depth run's peak within 1%: reduced qwen3_32b prefill
+    at 6 layers, gemma3_12b prefill at 18 (3 periods of 6), deepseek train
+    at 4, on the fake 8-rank mesh. The dry run takes a prefill_32k peak
+    that way at the JAX model's 512 rows."""
+    full, probed = counted[0]["peaks"][cell]
+    assert full > 0 and abs(probed - full) / full < 0.01, (full, probed)
+
+
+def test_a_placed_shard_holds_only_its_own_storage(counted):
+    """``sharding.place`` of a ``(1, 4, 8, 6)`` tensor with dim 1 over
+    ``data`` and dim 2 over ``model``: the rank's ``(1, 1, 4, 6)`` shard is
+    a contiguous slice, and it holds a storage of its own size, not a view
+    of the whole tensor. As a view, each of jamba15_large's one-period
+    probes held every stacked expert weight whole (6 GiB each), and the
+    two probes extrapolated its prefill_32k peak to -299.92 GiB."""
+    shape, nbytes, own = counted[0]["place"]
+    assert shape == [1, 1, 4, 6] and nbytes == own, (shape, nbytes, own)
+
+
+def test_falcons_prefill_never_makes_d_inner_whole(counted):
+    """Reduced falcon_mamba_7b's prefill on the fake ``(4, 2)`` mesh: no
+    rank makes a tensor of its tokens with d_inner whole. The ``x_proj``
+    product, a partial sum over d_inner's split, is reduced before ``dt @
+    dt_proj`` (as XLA reduces it); left partial, DTensor made ``dt`` with
+    the whole d_inner on every rank (at full size ``(65536, 8192)`` bf16,
+    1 GiB of falcon's prefill_32k peak, and a gather of the whole batch to
+    split it again)."""
+    assert counted[0]["whole_d_inner"] == []
+
+
+def test_prefill_caches_leave_each_period_sharded(counted):
+    """Reduced qwen3_32b's prefill (3 layers, 8 x 32 tokens, one kv head)
+    on the fake ``(4, 2)`` mesh under the prefill rules: each period's k/v
+    cache is constrained to the cache's axes as it leaves the period (its
+    rows over ``data``, its slots over ``model``: the kv head does not
+    split), as the JAX scan writes its out-sharded cache, so the stacked
+    cache that ``LM.prefill`` gives holds a rank's share of every layer,
+    not each layer whole (deepseek_coder_33b's prefill_32k held 256 MiB a
+    layer and a second copy in the stack: 32.12 GiB a rank)."""
+    shape, local, placements = counted[0]["prefill_cache"]
+    assert shape == [3, 8, 32, 1, 16] and local == [3, 2, 16, 1, 16], (shape, local)
+    assert placements == "(Shard(dim=1), Shard(dim=2))"
 
 
 def test_build_cell_gives_each_modes_step(counted):

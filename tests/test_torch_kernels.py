@@ -165,3 +165,24 @@ def test_b1_b4_route_by_type_and_refuse_the_cpu_first(name):
         with pytest.raises(ValueError, match="CUDA kernel"):
             fn(*args)
         assert fn.launches == 0
+
+
+@pytest.mark.parametrize("H,KV,h0,hl", [(8, 2, 0, 2), (8, 2, 4, 4), (8, 2, 2, 4), (6, 2, 2, 2),
+                                        (9, 3, 6, 3), (9, 3, 9, 0), (56, 8, 52, 4)])
+def test_the_kv_gradient_cut_is_the_adjoint_of_the_kv_cut(H, KV, h0, hl):
+    """``ops._kv_grad_for_heads`` lays the gradient of the kv heads that q
+    heads ``[h0, h0 + hl)`` read back into all KV heads as the adjoint of
+    ``ops._kv_for_heads`` (<cut(k), g> == <k, cut^T(g)>), zeros for the kv
+    heads those q heads do not read; an uneven head split's empty share
+    (9 heads over 4 ranks: 3, 3, 3, 0) reads none and gives zeros."""
+    gen = torch.Generator().manual_seed(H * 100 + h0)
+    group = H // KV
+    k = torch.randn(2, 3, KV, 4, generator=gen, dtype=torch.float64)
+    cut = ops._kv_for_heads(k, h0, hl, group)
+    g = torch.randn(cut.shape, generator=gen, dtype=torch.float64)
+    back = ops._kv_grad_for_heads(g, KV, h0, hl, group)
+    assert back.shape == k.shape
+    assert torch.allclose((cut * g).sum(), (k * back).sum(), rtol=1e-12, atol=1e-12)
+    read = set(range(h0 // group, -(-(h0 + hl) // group))) if hl else set()
+    for j in set(range(KV)) - read:
+        assert not back[:, :, j].any(), j

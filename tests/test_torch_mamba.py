@@ -182,6 +182,21 @@ def test_mamba_forward_matches_jax(bridged):
         _close(tcache[n], jcache[n], TOL["float32"])
 
 
+@pytest.mark.parametrize("B", [1, 2])
+def test_mamba_forward_cache_holds_only_its_own_storage(bridged, B):
+    """The sequence-mode cache (the conv carry, the final SSM state) holds
+    storages of its own size, as the JAX function's new arrays do: views
+    kept the padded input ``[B, S + K - 1, DI]`` and the last scan chunk's
+    ``[B, 256, DI, N]`` states alive in every layer's cache, the part of
+    falcon_mamba_7b's prefill_32k peak that grew with depth (S 512: two
+    chunks; B 1, where the carry's slice is contiguous)."""
+    jcfg, *_, tp = bridged
+    x = torch.randn(B, 512, jcfg.d_model, generator=torch.Generator().manual_seed(4))
+    _, cache = tmamba.mamba_forward(x, tp, jcfg)
+    for n, t in cache.items():
+        assert t.untyped_storage().nbytes() == t.numel() * t.element_size(), n
+
+
 def test_mamba_decode_matches_jax_and_writes_the_cache_in_place(bridged):
     jcfg, _, _, _, jp, tp = bridged
     m = jcfg.mamba

@@ -26,7 +26,14 @@ collective fails a test instead of the whole run.
   run also: qwen3 under Adafactor (its factored statistics on DTensors) and
   grok with 6 experts on ``(2, 4)`` (the expert FFN's width over ``model``).
 * Every dispatch function of ``kernels.ops`` on DTensors, the GQA cases
-  where kv heads do not split with q's among them.
+  where kv heads do not split with q's among them; the logsumexp routes
+  with q's heads split where kv's are whole, with no collective.
+* ``sharding.redistribute``: a split moved between two dims by all-to-all,
+  bit-equal to ``DTensor.redistribute`` and never gathered, and DTensor's
+  own backward where nothing moves; reduced
+  deepseek's 7 heads split 4 and 3 over ``model`` against the
+  single-process loss and gradients; a grok step under Adafactor with its
+  layer dim split that holds no expert stack whole.
 * Sharded checkpoints, mirroring tests/test_distributed_8dev.py::
   test_checkpoint_elastic_remesh across the two packages and two meshes: the
   port's 8 ranks save an ``[8, 8]`` leaf on ``(4, 2)`` under
@@ -479,6 +486,82 @@ def test_every_dispatch_function_takes_dtensors(runs):
     assert len(errs) == 30
     for case, err in errs.items():
         assert err <= 2e-4, (case, err)
+
+
+@pytest.mark.parametrize("mesh_dim", [0, 1])
+def test_a_split_moves_between_dims_by_all_to_all(runs, mesh_dim):
+    """``sharding.redistribute`` moves a split from tensor dim a to tensor
+    dim b of an ``(8, 10, 9)`` tensor (dims 1 and 2 split unevenly) on
+    each mesh dim of the ``(4, 2)`` mesh, for every pair (a, b), the other
+    mesh dim replicated or splitting any dim: bit-equal to
+    ``DTensor.redistribute``, values, placements and gradients, by
+    all-to-all alone (three where the other mesh dim's split nests inside a
+    or b and steps aside), with no all-gather and no local tensor over 1.5x
+    the larger shard (gathering over the mesh dim's 4 or 2 ranks makes
+    one 4x or 2x)."""
+    cases = {k: v for k, v in runs["port"]["moves"].items() if k.startswith(f"{mesh_dim}:")}
+    assert len(cases) == 24
+    for case, got in cases.items():
+        assert got["equal"], case
+        assert got["all_gather"] == 0 and got["largest"] < 1.5, (case, got)
+        assert got["all_to_all"] == (3 if got["nested"] else 1), (case, got)
+    assert any(got["nested"] for got in cases.values()) == (mesh_dim == 0)
+
+
+def test_a_redistribution_that_moves_no_split_keeps_dtensors_backward(runs):
+    """``sharding.redistribute`` where no split moves between dims, its
+    gradient arriving ``Partial`` on the mesh dim that the result
+    replicates (as ``ops.run_local`` hands a kernel's input gradient back):
+    the input's gradient bit-equal to ``DTensor.redistribute``'s, by the
+    same collectives forward and backward, the gradient reduce-scattered
+    into the input's split once. Carried through the result's layout, it
+    was all-reduced and then sliced: the dry run's train cells turned
+    their reduce-scatters into all-reduces (grok1_314b's collective term
+    5.1 s to 6.6 s)."""
+    got = runs["port"]["backward"]
+    for name, case in got.items():
+        assert case["equal"], (name, case)
+        assert case["port"] == case["dtensor"], (name, case)
+    assert "reduce-scatter" in got["split on model"]["port"], got
+
+
+def test_the_logsumexp_routes_keep_q_heads_split(runs):
+    """``flash_attention_lse`` and ``flash_attention_bwd`` on DTensors whose
+    2 kv heads do not split over the 4 ``model`` ranks (H 8): within 2e-4
+    of the plain calls (f32), q's heads split (2 a rank, in and out), the
+    lse ``[B, S, H]``, and no collective: nothing gathers q."""
+    got = runs["port"]["lse"]
+    for err in [got["out"], got["lse"], *got["grads"]]:
+        assert err <= 2e-4, got
+    assert got["local_heads"] == got["out_local_heads"] == 2
+    assert got["lse_shape"] == [4, 16, 8]
+    assert got["collectives"] == {}
+
+
+def test_heads_the_model_axis_does_not_divide_split_unevenly(runs):
+    """Reduced deepseek_coder_33b's 7 heads on a ``model`` axis of 2: the
+    loss and every gradient within 1e-6 of the single-process run (over
+    the reference's largest magnitude), each rank's attention taking its
+    own heads, 4 or 3 (at most ceil(7 / 2)), in every call."""
+    got = runs["port"]["heads"]
+    assert got["loss"] <= 1e-6
+    assert got["grads"] and max(got["grads"].values()) <= 1e-6, got["grads"]
+    assert got["num_heads"] == 7
+    by_rank = got["heads"]
+    assert len(by_rank) == 8 and all(by_rank)
+    assert {frozenset(h) for h in by_rank} == {frozenset([4]), frozenset([3])}
+
+
+def test_a_grok_adafactor_step_holds_no_expert_stack_whole(runs):
+    """One step of reduced grok1_314b (4 layers, 6 experts) under Adafactor
+    on ``(2, 4)``, its layer dim split over ``model`` as grok's 64 layers
+    are over 16: the loss and the new parameters within 1e-6 of the
+    single-process step, and no rank makes a local tensor of the whole
+    expert stack's shape (the factored second moment is made on each
+    rank's shard, as the gradient lies, so the update needs no move)."""
+    got = runs["port"]["grok_step"]
+    assert got["loss"] <= 1e-6 and got["params"] <= 1e-6, got
+    assert got["stack"] == [4, 6, 64, 128] and got["whole"] == []
 
 
 def test_shard_act_constrains_as_with_sharding_constraint(runs):
